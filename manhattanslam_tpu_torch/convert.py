@@ -1,0 +1,65 @@
+"""Carry the reference package's tracker state into the port.
+
+The system has no learned weights; what a tracker carries is state: the
+map's point and keyframe tables, the per-frame device carry, and the BRIEF
+pattern.  These functions take that state as numpy arrays (as the JAX
+package's ``SlamMap`` attributes, ``jax.device_get(init_carry(...))`` and
+``ops.orb.PATTERN`` hand it over) and return the port's objects, so the
+two trackers can start from the same state.  Descriptor words (uint32)
+become int32 tensors with the same bits.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from manhattanslam_tpu_torch.config import SlamConfig
+from manhattanslam_tpu_torch.slam_map import SlamMap
+
+# SlamMap attributes carried over (the port's point and keyframe tables)
+MAP_TABLES = (
+    "mp_pos", "mp_desc", "mp_normal", "mp_min_dist", "mp_max_dist", "mp_level",
+    "mp_valid", "mp_n_obs", "mp_visible", "mp_found", "mp_first_kf",
+    "kf_pose", "kf_time", "kf_frame_id", "kf_valid", "kf_xy", "kf_uright",
+    "kf_depth", "kf_level", "kf_angle", "kf_desc", "kf_kp_valid", "kf_mp_idx",
+    "covis", "kf_parent",
+)
+MAP_SCALARS = ("n_kf", "last_kf_added")
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """One array -> tensor on `device`; uint32 words keep their bits as int32."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a)).to(device)  # a copy: never aliases `a`
+
+
+def slam_map_from_numpy(cfg: SlamConfig, tables: dict) -> SlamMap:
+    """A port SlamMap holding copies of the given tables (attribute name ->
+    array, plus the scalars n_kf / last_kf_added and the list kf_free)."""
+    m = SlamMap(cfg)
+    for k in MAP_TABLES:
+        src = np.asarray(tables[k])
+        dst = getattr(m, k)
+        if src.shape != dst.shape:
+            raise ValueError(f"{k}: shape {src.shape}, the config needs {dst.shape}")
+        dst[...] = src
+    for k in MAP_SCALARS:
+        setattr(m, k, int(tables[k]))
+    m.kf_free = [int(i) for i in tables.get("kf_free", [])]
+    return m
+
+
+def carry_from_numpy(carry: dict, device) -> dict:
+    """The device carry (init_carry's keys) as tensors on `device`."""
+    return {k: tensor_from_numpy(v, device) for k, v in carry.items()}
+
+
+def pattern_from_numpy(pattern, device) -> torch.Tensor:
+    """The (256, 2, 2) int32 BRIEF pattern as a tensor on `device`."""
+    p = np.asarray(pattern)
+    if p.shape != (256, 2, 2):
+        raise ValueError(f"BRIEF pattern must be (256, 2, 2), got {p.shape}")
+    return torch.from_numpy(p.astype(np.int32)).to(device)

@@ -1,0 +1,244 @@
+"""Host state machine around the fused device step (counterpart of
+manhattanslam_tpu/frontend/fast_tracking.py, one frame per step).
+
+Per frame: one upload (u8 gray + depth), one step on the device, one pull
+of the summary.  The map view on the device is refreshed only at keyframe
+events, where the host runs the reference's keyframe policy and creates
+map points from depth.  No threads: each call to ``track`` returns after
+its frame is finished.  Chunked dispatch, localization mode,
+relocalization and the mapping back end come with later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from manhattanslam_tpu_torch.config import SlamConfig
+from manhattanslam_tpu_torch.frontend import device_tracker as dt
+from manhattanslam_tpu_torch.frontend.tracking import LOST, NOT_INITIALIZED, OK, FrameRecord
+from manhattanslam_tpu_torch.geometry import se3
+from manhattanslam_tpu_torch.slam_map import SlamMap
+
+
+class FastTracker:
+    def __init__(self, cfg: SlamConfig, slam_map: SlamMap, device: torch.device):
+        self.cfg = cfg
+        self.map = slam_map
+        self.device = device
+        self.step = dt.build_frame_step(cfg, device)
+        # the temporal VO bank anchors tracking while map coverage starves
+        # (it engages only below 30 map inliers, device_tracker.py)
+        self.carry = dt.init_carry(cfg, device, vo_points=True)
+        self.view = None  # device map view
+        self._shadow = None  # host snapshot of what the device view holds
+        self.frame_log: list[tuple] = []  # (frame_id, n_inliers, ok, ref_matches, ref_total)
+
+        self.state = NOT_INITIALIZED
+        self.request_reset = False
+        self.T_cw = np.eye(4, dtype=np.float32)
+        self.frame_id = -1
+        self.last_kf_frame_id = 0
+        self.ref_kf = 0
+        self.n_inliers = 0
+        self.n_map_inliers = 0
+        self.records: list[FrameRecord] = []
+        self.min_frames = int(cfg.min_kf_frames)
+        self._ref_matches = None  # cache; None = recompute (map/ref-KF changed)
+        self._ref_total = 0
+
+    # ------------------------------------------------------------------ API
+    def track(self, timestamp: float, gray: np.ndarray, depth: np.ndarray):
+        """Track one frame; returns Tcw (4,4) or None when lost."""
+        self.frame_id += 1
+        g8, d16 = dt.to_native(gray, depth)
+        g8_t = torch.from_numpy(g8).to(self.device)
+        d16_t = torch.from_numpy(d16.astype(np.int32)).to(self.device)
+        if self.state == NOT_INITIALIZED:
+            self._initialize(timestamp, g8_t, d16_t)
+            self._record(timestamp, lost=False)
+            return self.T_cw.copy()
+        result, self.carry = self.step(g8_t, d16_t, self.carry, self.view)
+        return self._finish_frame(timestamp, result)
+
+    def _finish_frame(self, timestamp: float, result: dict) -> np.ndarray | None:
+        s = dt.pull_summary(result)
+        ok = bool(s["tracked_ok"])
+        self.frame_log.append(
+            (self.frame_id, int(s["n_inliers"]), ok,
+             self._ref_matches if self._ref_matches is not None else -1,
+             self._ref_total)
+        )
+        if not ok:
+            self.state = LOST
+            # barely-started map: request a full system reset
+            # (Tracking.cc:517-523)
+            if self.map.n_kf <= 5:
+                self.request_reset = True
+            self._record(timestamp, lost=True)
+            return None
+
+        self.state = OK
+        self.T_cw = s["T"].astype(np.float32)
+        self.n_inliers = int(s["n_inliers"])
+        self.n_map_inliers = int(s["n_map_inliers"])
+        # landmark statistics (MapPoint::IncreaseVisible / IncreaseFound)
+        m = self.map
+        vis = s["visible"] & m.mp_valid
+        m.mp_visible[vis] += 1
+        m.mp_found[s["matched"] & vis] += 1
+        if self._need_new_keyframe(s, self.frame_id):
+            self._create_keyframe(timestamp, result, s, self.frame_id)
+        self._record(timestamp, lost=False)
+        return self.T_cw.copy()
+
+    # ------------------------------------------------------------- keyframe
+    def _need_new_keyframe(self, s: dict, frame_id: int) -> bool:
+        """NeedNewKeyFrame (Tracking.cc:1433-1508) as the reference package
+        decides it for points: past the min-frames hysteresis, a keyframe
+        when map matches fall below a share of the reference keyframe's
+        well-observed points (or close points go untracked) while the pose
+        still has more than 15 inliers."""
+        m = self.map
+        c = self.cfg.caps
+        free_kf = (c.max_keyframes - m.n_kf) + len(m.kf_free)
+        if free_kf <= 1:
+            return False
+        n_kfs = m.n_kf - len(m.kf_free)  # live keyframes
+        since_kf = frame_id - self.last_kf_frame_id
+        if since_kf < self.min_frames:
+            return False
+        # TrackedMapPoints(nMinObs): ref-KF matches with >= nMinObs
+        # observations; changes only at keyframe events, so cached
+        if self._ref_matches is None:
+            nmin = 3 if n_kfs > 2 else 2
+            ref_ids = m.kf_mp_idx[self.ref_kf]
+            ref_ids = ref_ids[ref_ids >= 0]
+            if len(ref_ids):
+                flat = m.kf_mp_idx[: m.n_kf][m.kf_valid[: m.n_kf]]
+                flat = flat[flat >= 0]
+                obs = np.bincount(flat, minlength=c.max_map_points)
+                self._ref_matches = int((obs[ref_ids] >= nmin).sum())
+                self._ref_total = len(ref_ids)
+            else:
+                self._ref_matches = 0
+                self._ref_total = 0
+        th_ref = 0.75 if n_kfs > 2 else 0.4
+        need_close = int(s["tracked_close"]) < 100 and int(s["nontracked_close"]) > 70
+        return (
+            self.n_map_inliers < self._ref_matches * th_ref or need_close
+        ) and self.n_inliers > 15
+
+    def _create_keyframe(self, timestamp, result, s, frame_id) -> None:
+        m = self.map
+        feats_np = dt.pull_feats(result)
+        kf_id = m.add_keyframe(self.T_cw, timestamp, frame_id, feats_np)
+        # new map points from depth (close-first, cap 100)
+        mp_idx = self._create_points_from_depth(feats_np, kf_id, s["kp_mp"])
+        m.set_kf_matches(kf_id, mp_idx)
+        self.ref_kf = kf_id
+        self.last_kf_frame_id = frame_id
+        self._ref_matches = None
+        # the new keyframe's points enter the device view now, so the next
+        # frame tracks against them
+        self.refresh_view()
+
+    def _create_points_from_depth(self, feats_np, kf_id, existing, max_new=100):
+        """All close points + nearest far points up to max_new total
+        (CreateNewKeyFrame depth-sorted rule, Tracking.cc:1554-1580)."""
+        cfg = self.cfg
+        m = self.map
+        depth = feats_np["depth"]
+        valid = feats_np["valid"] & (depth > 0) & (existing < 0)
+        close_th = cfg.th_depth_m
+        idx_close = np.nonzero(valid & (depth <= close_th))[0]
+        chosen = idx_close
+        if len(idx_close) < max_new:
+            far = np.nonzero(valid & (depth > close_th))[0]
+            far = far[np.argsort(depth[far])][: max_new - len(idx_close)]
+            chosen = np.concatenate([idx_close, far])
+        out = existing.copy()
+        n_free = int((~m.mp_valid).sum())
+        chosen = chosen[:n_free]
+        if len(chosen) == 0:
+            return out
+        cam = cfg.camera
+        d = depth[chosen]
+        x = (feats_np["xy_und"][chosen, 0] - cam.cx) / cam.fx * d
+        y = (feats_np["xy_und"][chosen, 1] - cam.cy) / cam.fy * d
+        pts_c = np.stack([x, y, d], -1)
+        T_wc = np.linalg.inv(self.T_cw)
+        pts_w = pts_c @ T_wc[:3, :3].T + T_wc[:3, 3]
+        dvec = pts_w - T_wc[:3, 3]
+        dist = np.linalg.norm(dvec, axis=1).clip(1e-9)
+        lvl = feats_np["level"][chosen]
+        sf = cfg.orb.scale_factor
+        max_d = dist * sf**lvl
+        min_d = max_d / sf ** (cfg.orb.n_levels - 1)
+        ids = m.add_points(
+            pts_w, feats_np["desc"][chosen], dvec / dist[:, None], min_d, max_d, lvl, kf_id
+        )
+        out[chosen] = ids
+        return out
+
+    # ------------------------------------------------------- initialization
+    def _initialize(self, timestamp, g8_t, d16_t) -> None:
+        """First frame: its features become keyframe 0 with every depth
+        point as a landmark."""
+        self.T_cw = np.eye(4, dtype=np.float32)
+        self.refresh_view()  # bootstrap view (empty map) so the step can run
+        result, _ = self.step(g8_t, d16_t, self.carry, self.view)
+        feats_np = dt.pull_feats(result)
+        m = self.map
+        kf_id = m.add_keyframe(self.T_cw, timestamp, self.frame_id, feats_np)
+        mp_idx = self._create_points_from_depth(
+            feats_np, kf_id, np.full(self.cfg.caps.max_keypoints, -1, np.int32),
+            max_new=10**9,
+        )
+        m.set_kf_matches(kf_id, mp_idx)
+        self.ref_kf = kf_id
+        self.last_kf_frame_id = self.frame_id
+        self.state = OK
+        self.refresh_view()
+
+    def refresh_view(self) -> None:
+        """Bring the device map view up to the host map (row diff)."""
+        host = dt.build_host_view(self.cfg, self.map, self.ref_kf)
+        if self.view is None:
+            self.view = dt.upload_view(host, self.device)
+        else:
+            self.view = dt.apply_view_update(self.view, dt.diff_host_views(self._shadow, host))
+        self._shadow = host
+
+    # ---------------------------------------------------------- export etc.
+    def _record(self, timestamp: float, lost: bool) -> None:
+        T_ref = self.map.kf_pose[self.ref_kf]
+        if lost:
+            T_cr = self.records[-1].T_cr if self.records else np.eye(4, dtype=np.float32)
+        else:
+            T_cr = (self.T_cw @ np.linalg.inv(T_ref)).astype(np.float32)
+        self.records.append(FrameRecord(timestamp, self.ref_kf, T_cr, lost))
+
+    def trajectory_rows(self):
+        rows = []
+        Two = np.linalg.inv(self.map.kf_pose[0])
+        for rec in self.records:
+            if rec.lost:
+                continue
+            T_cw = rec.T_cr @ (self.map.kf_pose[rec.ref_kf] @ Two)
+            R_wc = T_cw[:3, :3].T
+            t_wc = -R_wc @ T_cw[:3, 3]
+            rows.append((rec.timestamp, t_wc, se3.rotmat_to_quat_np(R_wc)))
+        return rows
+
+    def keyframe_rows(self):
+        rows = []
+        m = self.map
+        for i in range(m.n_kf):
+            if not m.kf_valid[i]:
+                continue
+            T = m.kf_pose[i]
+            R_wc = T[:3, :3].T
+            t_wc = -R_wc @ T[:3, 3]
+            rows.append((m.kf_time[i], t_wc, se3.rotmat_to_quat_np(R_wc)))
+        return rows

@@ -1,0 +1,185 @@
+"""Descriptor matching as masked dense products (counterpart of
+manhattanslam_tpu/ops/matching.py).
+
+The Hamming distance matrix is one float32 product of the +-1 unpacked
+descriptors, ``dist = (256 - a.b) / 2`` (exact: integer sums below 2^24);
+the reference's gates are masks: search radius by predicted scale,
+TH_HIGH / TH_LOW, best/second-best ratio, rotation-histogram consistency
+(HISTO_LENGTH=30, top-3 bins) and one-to-one conflict resolution.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from manhattanslam_tpu_torch.ops.orb import unpack_descriptor_bits
+
+TH_HIGH = 100
+TH_LOW = 50
+HISTO_LENGTH = 30
+BIG = 1e9
+
+
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """(N, 8) x (M, 8) int32 words -> (N, M) float32 Hamming distances."""
+    sa = 2.0 * unpack_descriptor_bits(desc_a) - 1.0
+    sb = 2.0 * unpack_descriptor_bits(desc_b) - 1.0
+    return (256.0 - sa @ sb.T) * 0.5
+
+
+def rotation_consistency_mask(
+    angle_a: torch.Tensor, angle_b: torch.Tensor, valid: torch.Tensor
+) -> torch.Tensor:
+    """Keep matches whose angle difference falls in the 3 most populated of
+    30 bins (ORBmatcher::ComputeThreeMaxima; bins 2/3 dropped when weaker
+    than 0.1 x the first)."""
+    diff = torch.remainder(angle_a - angle_b, 2.0 * math.pi)
+    bins = torch.clamp(
+        (diff * (HISTO_LENGTH / (2.0 * math.pi))).to(torch.int64), 0, HISTO_LENGTH - 1
+    )
+    hist = torch.zeros(HISTO_LENGTH, dtype=torch.int32, device=valid.device)
+    hist = hist.index_add(0, bins, valid.to(torch.int32))
+    top3 = torch.topk(hist, 3).values
+    thresh = torch.maximum(top3[2], torch.ceil(0.1 * top3[0]).to(torch.int32))
+    keep_bin = hist >= torch.clamp(thresh, min=1)
+    return valid & keep_bin[bins]
+
+
+def segment_min(values, seg_ids, n_segments: int, fill) -> torch.Tensor:
+    """Per-segment minimum over ids in [0, n_segments); other ids ignored."""
+    out = torch.full((n_segments + 1,), fill, dtype=values.dtype, device=values.device)
+    ids = torch.where((seg_ids >= 0) & (seg_ids < n_segments), seg_ids, n_segments)
+    return out.scatter_reduce(0, ids.long(), values, "amin", include_self=True)[:n_segments]
+
+
+def segment_max(values, seg_ids, n_segments: int, fill) -> torch.Tensor:
+    """Per-segment maximum over ids in [0, n_segments); other ids ignored."""
+    out = torch.full((n_segments + 1,), fill, dtype=values.dtype, device=values.device)
+    ids = torch.where((seg_ids >= 0) & (seg_ids < n_segments), seg_ids, n_segments)
+    return out.scatter_reduce(0, ids.long(), values, "amax", include_self=True)[:n_segments]
+
+
+def resolve_one_to_one(
+    kp_idx: torch.Tensor, dist: torch.Tensor, valid: torch.Tensor, n_kp: int
+) -> torch.Tensor:
+    """Keep, per claimed keypoint, only the claimant with minimum distance
+    (lowest source index among equals)."""
+    d = torch.where(valid, dist, torch.full_like(dist, BIG))
+    best_per_kp = segment_min(d, kp_idx, n_kp, BIG)
+    src = torch.arange(kp_idx.shape[0], dtype=torch.int32, device=kp_idx.device)
+    kp = kp_idx.long()
+    is_best = d <= best_per_kp[kp] + 1e-6
+    first_src = segment_min(
+        torch.where(valid & is_best, src, torch.full_like(src, 1 << 30)),
+        kp_idx, n_kp, 1 << 30,
+    )
+    return valid & is_best & (first_src[kp] == src)
+
+
+def match_descriptors(
+    desc_a: torch.Tensor,
+    desc_b: torch.Tensor,
+    valid_a: torch.Tensor,
+    valid_b: torch.Tensor,
+    max_dist: float = TH_LOW,
+    ratio: float = 0.0,
+    extra_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Nearest-neighbour matching A -> B; returns (idx_b, dist, valid)."""
+    d = hamming_matrix(desc_a, desc_b)
+    allow = valid_a[:, None] & valid_b[None, :]
+    if extra_mask is not None:
+        allow = allow & extra_mask
+    d = torch.where(allow, d, torch.full_like(d, BIG))
+    best, idx = torch.min(d, dim=1)
+    cols = torch.arange(d.shape[1], device=d.device)
+    second = torch.where(cols[None, :] == idx[:, None], torch.full_like(d, BIG), d).amin(dim=1)
+    ok = best <= max_dist
+    if ratio > 0:
+        ok = ok & (best < ratio * second)
+    return idx.to(torch.int32), best, ok & valid_a
+
+
+def project_points(
+    T_cw: torch.Tensor, pts_w: torch.Tensor, K: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """World points -> (uv (N,2), z (N,)) in the camera of T_cw."""
+    pc = pts_w @ T_cw[:3, :3].T + T_cw[:3, 3]
+    z = pc[:, 2]
+    zi = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    u = pc[:, 0] / zi * K[0, 0] + K[0, 2]
+    v = pc[:, 1] / zi * K[1, 1] + K[1, 2]
+    return torch.stack([u, v], -1), z
+
+
+def predict_scale_level(
+    dist_w: torch.Tensor, max_dist: torch.Tensor, scale_factor: float, n_levels: int
+) -> torch.Tensor:
+    """MapPoint::PredictScale: level = ceil(log(maxDist/dist)/log(scale))."""
+    ratio = torch.clamp(max_dist / dist_w.clamp(min=1e-6), min=1.0)
+    log_s = math.log(float(np.float32(scale_factor)))  # ln of the float32 factor
+    lvl = torch.ceil(torch.log(ratio) / log_s).to(torch.int32)
+    return torch.clamp(lvl, 0, n_levels - 1)
+
+
+def frustum_candidates(
+    pts: dict,
+    T_seed: torch.Tensor,
+    K: torch.Tensor,
+    image_hw: tuple[int, int],
+    cand_cap: int,
+    scale_factor: float = 1.2,
+    n_levels: int = 8,
+    use_scale_gate: bool = False,
+    margin: float = 64.0,
+) -> dict:
+    """Pose-seeded frustum compaction of a landmark bank, shared by every
+    solve of a frame: the gated rows in bank order, padded to cand_cap,
+    plus `visible_bank`, the bank-level frustum mask."""
+    N = pts["pos"].shape[0]
+    h, w = image_hw
+    uv, z = project_points(T_seed, pts["pos"], K)
+    gate = (
+        pts["valid"]
+        & (z > 0.05)
+        & (uv[:, 0] >= -margin) & (uv[:, 0] < w + margin)
+        & (uv[:, 1] >= -margin) & (uv[:, 1] < h + margin)
+    )
+    cam_center = -T_seed[:3, :3].T @ T_seed[:3, 3]
+    if use_scale_gate and "max_dist" in pts:
+        dist_w = torch.linalg.norm(pts["pos"] - cam_center[None], dim=-1)
+        levels = predict_scale_level(dist_w, pts["max_dist"], scale_factor, n_levels)
+        gate = gate & (dist_w >= pts["min_dist"] * 0.8) & (dist_w <= pts["max_dist"] * 1.2)
+        if "normal" in pts:
+            po = pts["pos"] - cam_center[None]
+            pn = po / torch.linalg.norm(po, dim=-1, keepdim=True).clamp(min=1e-9)
+            gate = gate & (torch.sum(pn * pts["normal"], -1) > 0.5)
+    else:
+        levels = pts.get("level", torch.zeros(N, dtype=torch.int32, device=gate.device))
+
+    CAND = min(cand_cap, N)
+    if CAND < N:
+        # gated rows first, in bank order (rank scores are distinct)
+        score = torch.where(
+            gate, N - torch.arange(N, dtype=torch.int32, device=gate.device), 0
+        )
+        cand_idx = torch.topk(score, CAND).indices
+        cand_valid = gate[cand_idx]
+    else:
+        cand_idx = torch.arange(N, device=gate.device)
+        cand_valid = gate
+    out = {
+        "bank_idx": cand_idx.to(torch.int32),
+        "valid": cand_valid,
+        "pos": pts["pos"][cand_idx],
+        "desc": pts["desc"][cand_idx],
+        "level": levels[cand_idx],
+        "visible_bank": gate,
+    }
+    if "rot_gate" in pts:
+        out["rot_gate"] = pts["rot_gate"][cand_idx]
+        out["angle"] = pts["angle"][cand_idx]
+    return out

@@ -1,0 +1,85 @@
+"""System facade (counterpart of manhattanslam_tpu/system.py), for the
+points-only fused tracker.
+
+Construct from a settings file or a SlamConfig, feed RGB-D frames through
+``track``, save TUM trajectories.  This slice runs ``fast=True`` with one
+frame per step and no pipeline, without planes, lines, surfels, the
+mapping back end or relocalization; asking for any of those raises
+``NotImplementedError`` naming the slice that brings it.
+
+The system runs on CUDA unless ``device`` says otherwise; with no GPU it
+raises rather than falling back to the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from manhattanslam_tpu_torch import resolve_device
+from manhattanslam_tpu_torch.config import SlamConfig, load_config
+from manhattanslam_tpu_torch.datasets.tum import to_gray
+from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
+from manhattanslam_tpu_torch.io import trajectory as traj_io
+from manhattanslam_tpu_torch.slam_map import SlamMap
+
+
+class System:
+    def __init__(
+        self,
+        settings: str | SlamConfig,
+        enable_planes: bool = False,
+        enable_lines: bool = False,
+        enable_surfels: bool = False,
+        fast: bool = True,
+        pipeline: bool = False,
+        chunk: int = 1,
+        device=None,
+    ):
+        later = {
+            "fast=False (the modular tracker)": not fast,
+            "chunk>1 (chunk mode, keyframes at chunk boundaries)": chunk > 1,
+            "pipeline=True (chunk mode slice)": pipeline,
+            "enable_planes=True (planes and Manhattan slice)": enable_planes,
+            "enable_lines=True (lines slice)": enable_lines,
+            "enable_surfels=True (surfels slice)": enable_surfels,
+        }
+        asked = [name for name, on in later.items() if on]
+        if asked:
+            raise NotImplementedError(
+                "not yet ported, comes with a later slice: " + ", ".join(asked)
+            )
+        self.cfg = settings if isinstance(settings, SlamConfig) else load_config(settings)
+        self.device = resolve_device(device)
+        self.map = SlamMap(self.cfg)
+        self.tracker = FastTracker(self.cfg, self.map, self.device)
+
+    def track(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float):
+        """Process one frame.  rgb: (H,W,3) uint8 or (H,W) gray; depth:
+        (H,W) float32 meters.  Returns Tcw (4,4) or None if tracking failed
+        (System::Track, System.cc:115-149)."""
+        expected = (self.cfg.camera.height, self.cfg.camera.width)
+        if rgb.shape[:2] != expected or depth.shape[:2] != expected:
+            raise ValueError(
+                f"frame shape mismatch: rgb {rgb.shape[:2]}, depth "
+                f"{depth.shape[:2]}, settings expect {expected}"
+            )
+        gray = rgb.astype(np.float32) if rgb.ndim == 2 else to_gray(rgb, self.cfg.camera.rgb)
+        T = self.tracker.track(timestamp, gray, depth)
+        if self.tracker.request_reset:
+            # lost with <=5 keyframes: automatic full reset (Tracking.cc:517-523)
+            self.reset()
+        return T
+
+    def reset(self) -> None:
+        """System reset (Tracking::Reset, Tracking.cc:2057-2087)."""
+        self.map = SlamMap(self.cfg)
+        self.tracker = FastTracker(self.cfg, self.map, self.device)
+
+    def shutdown(self) -> None:
+        """Nothing is in flight: every track() call finishes its frame."""
+
+    def save_trajectory_tum(self, path: str) -> None:
+        traj_io.save_trajectory_tum(path, self.tracker.trajectory_rows())
+
+    def save_keyframe_trajectory_tum(self, path: str) -> None:
+        traj_io.save_keyframe_trajectory_tum(path, self.tracker.keyframe_rows())

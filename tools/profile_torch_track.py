@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Where a frame's time goes in the PyTorch port's points-only tracker.
+
+Usage (one CUDA card, from the repository root):
+
+    python3 tools/profile_torch_track.py [--frames 10] [--warmup 5] [--trace PATH]
+
+Tracks the synthetic 640x480 box room at the TUM1 camera with the port's
+System, then profiles `--frames` frames with torch.profiler (CPU and CUDA
+activity) and prints: wall ms per frame, device kernel ms per frame and the
+device's busy share, the host-device synchronizations per frame, and the
+operators and kernels that take the most time.  `--trace` also writes a
+Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from manhattanslam_tpu_torch.config import load_config  # noqa: E402
+from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence  # noqa: E402
+from manhattanslam_tpu_torch.system import System  # noqa: E402
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=5)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_track: needs a CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs", "TUM1.yaml"))
+    n = args.warmup + args.frames
+    seq = SyntheticSequence(n_frames=n, cam=cfg.camera)
+    frames = [seq.frame(i) for i in range(n)]
+    system = System(cfg)
+    for ts, gray, depth in frames[: args.warmup]:
+        system.track(gray, depth, ts)
+    torch.cuda.synchronize()
+    wall = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for ts, gray, depth in frames[args.warmup :]:
+            t = time.perf_counter()
+            system.track(gray, depth, ts)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+    f = args.frames
+    events = prof.key_averages()
+    dev_ms = sum(_device_us(e) for e in events) / 1e3 / f
+    med = statistics.median(wall)
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"wall: median {med:.2f} ms/frame over {f} frames (min {min(wall):.2f}, max {max(wall):.2f})")
+    print(f"device kernels: {dev_ms:.3f} ms/frame, busy share {dev_ms / med:.3f}")
+    syncs = {
+        e.key: e.count / f for e in events
+        if any(s in e.key for s in ("Synchronize", "cudaMemcpy", "cudaStreamWaitEvent"))
+    }
+    print("host-device sync and copy calls per frame:", {k: round(v, 1) for k, v in syncs.items()})
+    n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"kernel launches per frame: {n_launch / f:.0f}")
+    print("top operators by self CPU time (ms/frame, calls/frame):")
+    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:20]:
+        print(f"  {e.self_cpu_time_total / 1e3 / f:8.3f}  {e.count / f:7.1f}  {e.key[:90]}")
+    print("top device kernels by time (ms/frame, calls/frame):")
+    for e in sorted(events, key=lambda e: -_device_us(e))[:20]:
+        if _device_us(e) > 0:
+            print(f"  {_device_us(e) / 1e3 / f:8.3f}  {e.count / f:7.1f}  {e.key[:90]}")
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+        print(f"trace written to {args.trace}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
