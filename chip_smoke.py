@@ -13,15 +13,30 @@ Phases, each printing one line with its elapsed seconds:
              version on the card: FAST scores and BRIEF words equal, angles
              within 1e-4 rad at the valid keypoints; time both (CUDA events
              around 20 back-to-back calls, median of 5 such windows) and
-             compute each kernel's bound.
+             compute each kernel's bound.  Then the same for the batched
+             launches that serve the replay: B = 8 different frames in one
+             launch per level, each also held equal to B single launches,
+             with the bound recomputed for the B frames; and the batched
+             pyramid and features against single-frame extraction (reported).
 3. track   - the points-only System over 30 synthetic 640x480 frames at the
              TUM1 camera, with every kernel's launch count set to 0 first:
              all frames tracked, ATE against the renderer's ground truth
              below 0.05 m, every kernel launched.
+4. replay  - the batched multi-sequence replay (BASELINE config 5) through
+             parallel/mesh.py: B = 8 streams of the same 640x480 box room,
+             stream s at frame offset s, against the one shared map view of
+             keyframe 0, for 12 steps (the first not timed), with the launch
+             counts set to 0 first: every stream tracked on every step, each
+             kernel launched once per level per step, each stream's pose
+             within 1e-3 m / 1e-3 rad of the single-stream step run on the
+             same frame and carry, and the poses' RMS error against ground
+             truth below 0.05 m.  Prints ms per step, aggregate frames/s at
+             B = 8 and B = 1 (the same entry point) and the peak memory.
 
 Any failure raises and the script exits nonzero.  It writes only into a
 temporary directory and the kernel build directory, and starts no thread.
-The last two lines are the kernels JSON and {"ok": true, "device": ...}.
+The last two lines are the kernels JSON (one row per TPU kernel) and
+{"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -42,17 +57,24 @@ from manhattanslam_tpu_torch.config import load_config
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
+from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
 from manhattanslam_tpu_torch.io import trajectory as traj_io
 from manhattanslam_tpu_torch.ops import fast as fast_ops
 from manhattanslam_tpu_torch.ops import image as image_ops
 from manhattanslam_tpu_torch.ops import kernel_build
 from manhattanslam_tpu_torch.ops import orb as orb_ops
+from manhattanslam_tpu_torch.parallel import mesh
+from manhattanslam_tpu_torch.slam_map import SlamMap
 from manhattanslam_tpu_torch.system import System
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 30
 ATE_LIMIT = 0.05
 ANGLE_TOL = 1e-4
+BATCH = 8  # replay streams (BASELINE config 5)
+REPLAY_STEPS = 12  # the first is not timed; frames up to REPLAY_STEPS + BATCH - 2 < N_FRAMES
+POSE_TOL_M = 1e-3  # replay stream vs the single-stream step, per step
+POSE_TOL_RAD = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # float ops per interior pixel of the FAST score: 16 differences,
@@ -64,23 +86,51 @@ IC_OPS_PER_PIXEL = 4
 # 4 clamps; per pair 2 points + 1 compare
 BRIEF_OPS_PER_PAIR = 2 * 14 + 1
 
+# One row per TPU kernel (each function that reaches pl.pallas_call).  A
+# single kernel and its batched twin are served by one CUDA kernel (its
+# grid has a stream dimension); the single rows count launches on the
+# track phase's path, the batched rows on the replay's.
+_FAST = "manhattanslam_tpu_torch/csrc/fast.cu"
+_IC = "manhattanslam_tpu_torch/csrc/ic_angle.cu"
+_BRIEF = "manhattanslam_tpu_torch/csrc/brief.cu"
 KERNELS = {
     "fast_score": dict(
-        source="manhattanslam_tpu_torch/csrc/fast.cu",
-        replaces="manhattanslam_tpu/ops/fast_pallas.py:33 (_fast_kernel; batched twin :92)",
-        wrapper=fast_ops.fast_score_map,
+        source=_FAST, path="track", wrapper=fast_ops.fast_score_map,
+        replaces="manhattanslam_tpu/ops/fast_pallas.py:33 (_fast_kernel, pallas_call :79)",
     ),
     "ic_angle": dict(
-        source="manhattanslam_tpu_torch/csrc/ic_angle.cu",
-        replaces="manhattanslam_tpu/ops/orb_pallas.py:235 (_make_moments_kernel; batched twin :299)",
-        wrapper=orb_ops.ic_angle,
+        source=_IC, path="track", wrapper=orb_ops.ic_angle,
+        replaces="manhattanslam_tpu/ops/orb_pallas.py:235 (_make_moments_kernel, pallas_call :285)",
     ),
     "brief": dict(
-        source="manhattanslam_tpu_torch/csrc/brief.cu",
-        replaces="manhattanslam_tpu/ops/orb_pallas.py:66 (_make_brief_kernel; batched twin :133)",
-        wrapper=orb_ops.brief_descriptors,
+        source=_BRIEF, path="track", wrapper=orb_ops.brief_descriptors,
+        replaces="manhattanslam_tpu/ops/orb_pallas.py:66 (_make_brief_kernel, pallas_call :117)",
+    ),
+    "fast_score_batched": dict(
+        source=_FAST, path="replay", wrapper=fast_ops.fast_score_map,
+        replaces="manhattanslam_tpu/ops/fast_pallas.py:92 (_fast_kernel_batched, pallas_call :127)",
+    ),
+    "ic_angle_batched": dict(
+        source=_IC, path="replay", wrapper=orb_ops.ic_angle,
+        replaces="manhattanslam_tpu/ops/orb_pallas.py:299 "
+        "(_make_moments_kernel_batched, pallas_call :341)",
+    ),
+    "brief_batched": dict(
+        source=_BRIEF, path="replay", wrapper=orb_ops.brief_descriptors,
+        replaces="manhattanslam_tpu/ops/orb_pallas.py:133 "
+        "(_make_brief_kernel_batched, pallas_call :176)",
     ),
 }
+WRAPPERS = (fast_ops.fast_score_map, orb_ops.ic_angle, orb_ops.brief_descriptors)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
 def log(msg: str) -> None:
@@ -125,39 +175,45 @@ def phase_build() -> str:
     return smi
 
 
-def phase_kernels(cfg, dev) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
-    t0 = time.perf_counter()
-    seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera)
-    _, gray, depth = seq.frame(0)
-    g8, _ = dt.to_native(gray, depth)
-    img = torch.from_numpy(g8).to(dev).to(torch.float32)
+def _measure_levels(cfg, dev, imgs: torch.Tensor, stats: dict, names: tuple) -> None:
+    """Every kernel at every pyramid level of the (B, H, W) stack `imgs`,
+    one launch per level for all B images, against its plain version (and,
+    for B > 1, against B single launches).  Adds each level's times, error
+    and bound terms to stats[name] for the (fast, ic_angle, brief) names."""
+    b = imgs.shape[0]
     ops = image_ops.pyramid_operators(
         cfg.camera.height, cfg.camera.width, cfg.orb.n_levels, cfg.orb.scale_factor, dev
     )
-    levels = image_ops.build_pyramid(img, ops)
+    levels = image_ops.build_pyramid(imgs, ops)
     budgets = cfg.orb.features_per_level()
     stream = torch.cuda.current_stream(dev).cuda_stream
     fns = kernel_build.build()
     pattern = orb_ops.device_constant("PATTERN", dev)
     umax = orb_ops.device_constant("UMAX", dev)
     circ = orb_ops.device_constant("CIRC_MASK", dev)
-    stats = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                     bytes=0.0, ops=0.0) for k in KERNELS}
+    st_fast, st_ic, st_brief = (stats[k] for k in names)
+    # offsets that keep the B images' pixel indices apart when counting
+    # the distinct pixels a launch reads
     for li, level in enumerate(levels):
-        h, w = level.shape
+        h, w = level.shape[-2:]
         n = budgets[li]
+        img_off = (torch.arange(b, device=dev) * h * w)[:, None, None]
+
+        def same_as_singles(out, single):
+            return b == 1 or all(torch.equal(out[i], single(i)) for i in range(b))
+
         # FAST: bit-identical scores
         score = fast_ops.fast_score_map(level)
-        plain = fast_ops.fast_score_map_plain(level)
-        if not torch.equal(score, plain):
-            raise RuntimeError(f"fast_score level {li}: kernel != plain version")
+        if not torch.equal(score, fast_ops.fast_score_map_plain(level)):
+            raise RuntimeError(f"{names[0]} level {li}: kernel != plain version")
+        if not same_as_singles(score, lambda i: fast_ops.fast_score_map(level[i])):
+            raise RuntimeError(f"{names[0]} level {li}: batched launch != single launches")
         out = torch.empty_like(level)
-        st = stats["fast_score"]
-        st["ms"] += median_ms(lambda: fns["fast"](level.data_ptr(), out.data_ptr(), h, w, stream))
-        st["plain_ms"] += median_ms(lambda: fast_ops.fast_score_map_plain(level))
-        st["bytes"] += 2 * h * w * 4
-        st["ops"] += FAST_OPS_PER_PIXEL * (h - 6) * (w - 6)
+        st_fast["ms"] += median_ms(
+            lambda: fns["fast"](level.data_ptr(), out.data_ptr(), b, h, w, stream))
+        st_fast["plain_ms"] += median_ms(lambda: fast_ops.fast_score_map_plain(level))
+        st_fast["bytes"] += 2 * b * h * w * 4
+        st_fast["ops"] += FAST_OPS_PER_PIXEL * b * (h - 6) * (w - 6)
 
         # the level's keypoints, as the extractor picks them
         xy, _, valid = frame.level_keypoints(level, n, cfg)
@@ -168,54 +224,104 @@ def phase_kernels(cfg, dev) -> dict:
         dang = torch.remainder(ang - ang_p + math.pi, 2 * math.pi) - math.pi
         err = float(dang[valid].abs().max()) if bool(valid.any()) else 0.0
         if not err <= ANGLE_TOL:
-            raise RuntimeError(f"ic_angle level {li}: max error {err} rad > {ANGLE_TOL}")
-        st = stats["ic_angle"]
-        st["max_abs_err"] = max(st["max_abs_err"], err)
-        ang_out = torch.empty(n, dtype=torch.float32, device=dev)
-        st["ms"] += median_ms(lambda: fns["ic_angle"](
-            level.data_ptr(), xy.data_ptr(), umax.data_ptr(), ang_out.data_ptr(), n, h, w, stream))
-        st["plain_ms"] += median_ms(lambda: orb_ops.ic_angle_plain(level, xy))
-        disc_px = orb_ops.ic_patch_index(xy, h, w)[circ.expand(n, -1, -1)]
-        n_uniq = int(torch.unique(disc_px).numel())
-        st["bytes"] += 4 * n_uniq + 8 * n + 4 * umax.numel() + 4 * n
-        st["ops"] += IC_OPS_PER_PIXEL * float(circ.sum()) * n
+            raise RuntimeError(f"{names[1]} level {li}: max error {err} rad > {ANGLE_TOL}")
+        if not same_as_singles(ang, lambda i: orb_ops.ic_angle(level[i], xy[i])):
+            raise RuntimeError(f"{names[1]} level {li}: batched launch != single launches")
+        st_ic["max_abs_err"] = max(st_ic["max_abs_err"], err)
+        ang_out = torch.empty((b, n), dtype=torch.float32, device=dev)
+        st_ic["ms"] += median_ms(lambda: fns["ic_angle"](
+            level.data_ptr(), xy.data_ptr(), umax.data_ptr(), ang_out.data_ptr(), b, n, h, w,
+            stream))
+        st_ic["plain_ms"] += median_ms(lambda: orb_ops.ic_angle_plain(level, xy))
+        disc_px = orb_ops.ic_patch_index(xy, h, w).reshape(b, n, -1)[..., circ.reshape(-1)]
+        n_uniq = int(torch.unique(disc_px + img_off).numel())
+        st_ic["bytes"] += 4 * n_uniq + 8 * b * n + 4 * umax.numel() + 4 * b * n
+        st_ic["ops"] += IC_OPS_PER_PIXEL * float(circ.sum()) * b * n
 
         # BRIEF: bit-exact words from the kernel's angles
         blurred = torch.round(image_ops.gaussian_blur(level, 7, 2.0))
         desc = orb_ops.brief_descriptors(blurred, xy, ang)
         desc_p = orb_ops.brief_descriptors_plain(blurred, xy, ang)
         if not torch.equal(desc, desc_p):
-            bad = int((desc != desc_p).any(dim=1).sum())
-            raise RuntimeError(f"brief level {li}: {bad} keypoints differ from the plain version")
+            bad = int((desc != desc_p).any(dim=-1).sum())
+            raise RuntimeError(
+                f"{names[2]} level {li}: {bad} keypoints differ from the plain version")
+        if not same_as_singles(
+            desc, lambda i: orb_ops.brief_descriptors(blurred[i], xy[i], ang[i])
+        ):
+            raise RuntimeError(f"{names[2]} level {li}: batched launch != single launches")
         ca, sa = torch.cos(ang), torch.sin(ang)
-        desc_out = torch.empty((n, 8), dtype=torch.int32, device=dev)
-        st = stats["brief"]
-        st["ms"] += median_ms(lambda: fns["brief"](
+        desc_out = torch.empty((b, n, 8), dtype=torch.int32, device=dev)
+        st_brief["ms"] += median_ms(lambda: fns["brief"](
             blurred.data_ptr(), xy.data_ptr(), ca.data_ptr(), sa.data_ptr(),
-            pattern.data_ptr(), desc_out.data_ptr(), n, h, w, stream))
-        st["plain_ms"] += median_ms(lambda: orb_ops.brief_descriptors_plain(blurred, xy, ang))
-        n_uniq = int(torch.unique(orb_ops.brief_sample_index(xy, ca, sa, h, w)).numel())
-        st["bytes"] += 4 * n_uniq + 8 * n + 8 * n + 4 * pattern.numel() + 32 * n
-        st["ops"] += BRIEF_OPS_PER_PAIR * 256 * n
+            pattern.data_ptr(), desc_out.data_ptr(), b, n, h, w, stream))
+        st_brief["plain_ms"] += median_ms(
+            lambda: orb_ops.brief_descriptors_plain(blurred, xy, ang))
+        sample_px = orb_ops.brief_sample_index(xy, ca, sa, h, w).reshape(b, n, -1)
+        n_uniq = int(torch.unique(sample_px + img_off).numel())
+        st_brief["bytes"] += (
+            4 * n_uniq + 8 * b * n + 8 * b * n + 4 * pattern.numel() + 32 * b * n)
+        st_brief["ops"] += BRIEF_OPS_PER_PAIR * 256 * b * n
 
+
+def _compare_extraction(cfg, dev, gray: torch.Tensor, depth: torch.Tensor) -> None:
+    """Report (not gate) how far one batched extraction of B frames is from
+    B single-frame extractions on the card: the pyramid products change
+    shape with B, and a one-ulp change can move a keypoint."""
+    ops = image_ops.pyramid_operators(
+        cfg.camera.height, cfg.camera.width, cfg.orb.n_levels, cfg.orb.scale_factor, dev
+    )
+    lv_b = image_ops.build_pyramid(gray, ops)
+    extract = frame.build_extractor(cfg, dev)
+    fb = extract(gray, depth)
+    pyr_diff, moved, desc_diff, n_kp = 0.0, 0, 0, 0
+    differ = set()
+    for i in range(gray.shape[0]):
+        lv_s = image_ops.build_pyramid(gray[i], ops)
+        pyr_diff = max(pyr_diff, max(float((a[i] - c).abs().max()) for a, c in zip(lv_b, lv_s)))
+        fs = extract(gray[i], depth[i])
+        kp = (fb["xy"][i] != fs["xy"]).any(-1) | (fb["valid"][i] != fs["valid"])
+        moved += int(kp.sum())
+        desc_diff += int(((fb["desc"][i] != fs["desc"]).any(-1) & ~kp).sum())
+        n_kp += int(fs["valid"].sum())
+        differ |= {k for k, v in fs.items() if not torch.equal(fb[k][i], v)}
+    log(f"kernels: batched vs single extraction of {gray.shape[0]} frames on the card: "
+        f"pyramid max |diff| {pyr_diff}; of {n_kp} keypoints {moved} moved and {desc_diff} "
+        f"others changed descriptor; features that differ anywhere: {sorted(differ)}")
+
+
+def phase_kernels(cfg, dev, frames) -> dict:
+    """Each kernel against its plain version at the main path's shapes:
+    frame 0 alone (the track phase's launches) and BATCH frames in one
+    launch (the replay's)."""
+    t0 = time.perf_counter()
+    native = [dt.to_native(g, d) for _, g, d in frames[:BATCH]]
+    gray = torch.from_numpy(np.stack([g for g, _ in native])).to(dev).to(torch.float32)
+    depth = torch.from_numpy(np.stack([d.astype(np.int32) for _, d in native])).to(dev)
+    depth = depth.to(torch.float32) * float(np.float32(1.0 / dt.DEPTH_QUANT))
+    stats = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, ops=0.0)
+             for k in KERNELS}
+    _measure_levels(cfg, dev, gray[:1].contiguous(), stats, ("fast_score", "ic_angle", "brief"))
+    _measure_levels(cfg, dev, gray, stats,
+                    ("fast_score_batched", "ic_angle_batched", "brief_batched"))
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(st.pop("bytes"), st.pop("ops"))
         log(f"kernels {name}: max_abs_err {st['max_abs_err']:.3g}, "
-            f"{st['ms']:.4f} ms/frame ({len(levels)} launches), plain {st['plain_ms']:.4f} ms, "
+            f"{st['ms']:.4f} ms per {'step' if 'batched' in name else 'frame'} "
+            f"({cfg.orb.n_levels} launches), plain {st['plain_ms']:.4f} ms, "
             f"bound {st['bound_ms']:.6f} ms ({st['bound_by']})")
-    log(f"phase kernels: {len(levels)} levels, all kernels agree with their plain "
-        f"versions, {time.perf_counter() - t0:.1f} s")
+    _compare_extraction(cfg, dev, gray, depth)
+    log(f"phase kernels: {cfg.orb.n_levels} levels, single and {BATCH}-frame launches, all "
+        f"kernels agree with their plain versions, {time.perf_counter() - t0:.1f} s")
     return stats
 
 
-def phase_track(cfg, tmp: str) -> dict:
-    """The points-only System over N_FRAMES frames; returns launch counts."""
+def phase_track(cfg, seq, frames, tmp: str) -> tuple[dict, float]:
+    """The points-only System over N_FRAMES frames; returns the launch
+    counts of that run and its median ms per frame."""
     t0 = time.perf_counter()
-    seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera)
-    frames = [seq.frame(i) for i in range(N_FRAMES)]
     system = System(cfg)  # CUDA by default
-    for k in KERNELS.values():
-        k["wrapper"].launches = 0
+    reset_launches()
     ms, tracked = [], 0
     for ts, gray, depth in frames:
         t = time.perf_counter()
@@ -224,7 +330,7 @@ def phase_track(cfg, tmp: str) -> dict:
         ms.append((time.perf_counter() - t) * 1e3)
         if T is not None and np.isfinite(T).all():
             tracked += 1
-    launches = {name: k["wrapper"].launches for name, k in KERNELS.items()}
+    launches = read_launches()
     system.shutdown()
     traj = os.path.join(tmp, "CameraTrajectory.txt")
     system.save_trajectory_tum(traj)
@@ -246,6 +352,117 @@ def phase_track(cfg, tmp: str) -> dict:
         if n <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the main path")
     log(f"phase track: {time.perf_counter() - t0:.1f} s")
+    return launches, med
+
+
+def _rot_angle(R: np.ndarray) -> float:
+    """Rotation angle (rad) of a 3x3 rotation matrix, accurate near zero."""
+    R = np.asarray(R, np.float64)
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return float(np.arctan2(np.linalg.norm(w) / 2, (np.trace(R) - 1) / 2))
+
+
+def _pose_diff(A: np.ndarray, B: np.ndarray) -> tuple[float, float]:
+    d = np.linalg.inv(np.asarray(A, np.float64)) @ np.asarray(B, np.float64)
+    return float(np.linalg.norm(d[:3, 3])), _rot_angle(d[:3, :3])
+
+
+def _replay_run(cfg, dev, native, view, T0: np.ndarray, first: list[int]):
+    """len(first) streams through build_throughput_step for REPLAY_STEPS
+    steps, stream s starting at frame first[s] at pose T0[s].  Returns
+    (per-step inputs, carries going in, outputs, ms per step, launches per
+    step); the host clock runs from the upload of a step's frames to the
+    synchronize after it."""
+    b = len(first)
+    step = mesh.build_throughput_step(cfg, b, dev)
+    carry = mesh.init_batched_carry(cfg, b, dev)
+    carry["T_last"] = torch.from_numpy(T0).to(dev)
+    torch.cuda.synchronize()
+    inputs, carries, outs, ms, launches = [], [], [], [], []
+    for i in range(REPLAY_STEPS):
+        before = read_launches()
+        t = time.perf_counter()
+        g8 = torch.from_numpy(np.stack([native[f + i][0] for f in first])).to(dev)
+        d16 = torch.from_numpy(np.stack([native[f + i][1].astype(np.int32) for f in first])).to(dev)
+        carries.append(carry)
+        out, carry = step(g8, d16, carry, view)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        after = read_launches()
+        launches.append({k: after[k] - before[k] for k in after})
+        inputs.append((g8, d16))
+        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    return inputs, carries, outs, ms, launches
+
+
+def phase_replay(cfg, dev, seq, frames, track_ms: float) -> dict:
+    """The batched replay of BATCH streams against one shared view;
+    returns the launch counts of its run."""
+    t0 = time.perf_counter()
+    # the shared view: keyframe 0 of the tracker (its depth points with
+    # their distance bounds, and its keypoint matches for the ref-KF bank)
+    tracker = FastTracker(cfg, SlamMap(cfg), dev)
+    tracker.track(*frames[0])
+    view = dt.upload_view(dt.build_host_view(cfg, tracker.map, tracker.ref_kf), dev)
+    n_points = int(tracker.map.mp_valid.sum())
+    native = [dt.to_native(g, d) for _, g, d in frames]
+    # stream s replays frames s, s+1, ... and starts at the ground-truth
+    # pose of frame s (an identity start would take its whole offset from
+    # frame 0 as its first velocity)
+    gt_cw = [np.linalg.inv(T) @ seq.poses[0] for T in seq.poses]
+    first = list(range(BATCH))
+    T0 = np.stack([gt_cw[f] for f in first]).astype(np.float32)
+    shapes = image_ops.pyramid_shapes(
+        cfg.camera.height, cfg.camera.width, cfg.orb.n_levels, cfg.orb.scale_factor)
+    per_step = sum(min(hw) >= 2 * orb_ops.EDGE_THRESHOLD + 3 for hw in shapes)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    inputs, carries, outs, ms, step_launches = _replay_run(cfg, dev, native, view, T0, first)
+    launches = read_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    med = statistics.median(ms[1:])
+    # B = 1 through the same entry point, stream 0's frames
+    _, _, outs_1, ms_1, _ = _replay_run(cfg, dev, native, view, T0[:1], first[:1])
+    med_1 = statistics.median(ms_1[1:])
+
+    # every stream tracked on every step, each kernel once per level per step
+    for i, out in enumerate(outs):
+        if not out["tracked_ok"].all():
+            raise RuntimeError(f"replay step {i}: streams {np.nonzero(~out['tracked_ok'])[0]} lost")
+        for name, n in step_launches[i].items():
+            if n != per_step:
+                raise RuntimeError(
+                    f"replay step {i}: {name} launched {n} times, not once per level ({per_step})")
+    # each stream against the single-stream step on the same frame and carry
+    single = dt.build_frame_step(cfg, dev)
+    max_dt = max_dr = 0.0
+    gt_err = []
+    for i, ((g8, d16), carry, out) in enumerate(zip(inputs, carries, outs)):
+        for s in range(BATCH):
+            res, _ = single(g8[s], d16[s], {k: v[s] for k, v in carry.items()}, view)
+            dt_, dr_ = _pose_diff(res["T"].cpu().numpy(), out["T"][s])
+            max_dt, max_dr = max(max_dt, dt_), max(max_dr, dr_)
+            gt_err.append(_pose_diff(gt_cw[first[s] + i], out["T"][s])[0])
+    for i, (a, c) in enumerate(zip(outs_1, outs)):
+        dt_, dr_ = _pose_diff(a["T"][0], c["T"][0])
+        max_dt, max_dr = max(max_dt, dt_), max(max_dr, dr_)
+    gt_rms = float(np.sqrt(np.mean(np.square(gt_err))))
+    log(f"replay: {BATCH} streams x {REPLAY_STEPS} steps against one view of {n_points} "
+        f"points, all tracked; median {med:.2f} ms per step (first step {ms[0]:.0f} ms), "
+        f"{BATCH * 1e3 / med:.1f} frames/s aggregate; B = 1 through the same entry: "
+        f"{med_1:.2f} ms per step, {1e3 / med_1:.1f} frames/s; single-stream System "
+        f"(track phase): {track_ms:.1f} ms per frame; peak memory {peak_mib:.1f} MiB; "
+        f"launches per step {step_launches[-1]}")
+    log(f"replay: against the single-stream step on the same frame and carry: max "
+        f"{max_dt:.3g} m, {max_dr:.3g} rad; against ground truth: RMS {gt_rms:.4f} m, "
+        f"max {max(gt_err):.4f} m")
+    if not (max_dt < POSE_TOL_M and max_dr < POSE_TOL_RAD):
+        raise RuntimeError(
+            f"replay poses differ from the single-stream step by {max_dt} m / {max_dr} rad")
+    if not gt_rms < ATE_LIMIT:
+        raise RuntimeError(f"replay pose RMS error {gt_rms} m is not below {ATE_LIMIT} m")
+    log(f"phase replay: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -258,15 +475,20 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     phase_build()
-    stats = phase_kernels(cfg, dev)
+    seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera)
+    frames = [seq.frame(i) for i in range(N_FRAMES)]
+    stats = phase_kernels(cfg, dev, frames)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_track(cfg, tmp)
+        track_launches, track_ms = phase_track(cfg, seq, frames, tmp)
+    replay_launches = phase_replay(cfg, dev, seq, frames, track_ms)
+    launches = {"track": track_launches, "replay": replay_launches}
     rows = []
     for name, k in KERNELS.items():
         st = stats[name]
         rows.append({
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-            "launches": launches[name], "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "launches": launches[k["path"]][k["wrapper"].__name__],
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,
         })

@@ -57,6 +57,17 @@ def carry_from_numpy(carry: dict, device) -> dict:
     return {k: tensor_from_numpy(v, device) for k, v in carry.items()}
 
 
+def batched_carry_from_numpy(carry: dict, device) -> dict:
+    """The batched replay's carry (the reference's
+    ``jax.device_get(init_batched_carry(cfg, B))``: init_carry's keys, each
+    with a leading axis of B streams) as tensors on `device`."""
+    out = carry_from_numpy(carry, device)
+    sizes = {tuple(v.shape[:1]) for v in out.values()}
+    if len(sizes) != 1 or sizes == {()}:
+        raise ValueError(f"a batched carry needs one leading stream axis on every key, got {sizes}")
+    return out
+
+
 def pattern_from_numpy(pattern, device) -> torch.Tensor:
     """The (256, 2, 2) int32 BRIEF pattern as a tensor on `device`."""
     p = np.asarray(pattern)

@@ -1,6 +1,6 @@
 // Steered BRIEF: 256 rotated intensity comparisons packed into 8 words.
 //
-// Replaces the Pallas TPU kernel _make_brief_kernel /
+// Replaces the Pallas TPU kernels _make_brief_kernel and
 // _make_brief_kernel_batched (manhattanslam_tpu/ops/orb_pallas.py) plus
 // the compare-and-pack of its wrapper brief_descriptors_pallas.  For each
 // keypoint and pattern point (py, px): rx = px*cos - py*sin,
@@ -15,9 +15,11 @@
 // (at most 2 KB) and writes 32 bytes against ~20 float ops per pair, so
 // the (scattered) bytes bound it; a frame's ~1000 keypoints are a few
 // microseconds of traffic and the launch dominates.  Design: one warp per
-// keypoint, lane j evaluates pair 32i+j of word i, and __ballot_sync packs
-// the 32 comparisons into the word in one instruction, so the 512 samples
-// never leave registers (the TPU kernel's one-hot MXU row select, patch
+// keypoint of the flat (B * n) batch (keypoint k belongs to image k / n,
+// so one launch serves the single stream and the batched replay), lane j
+// evaluates pair 32i+j of word i, and __ballot_sync packs the 32
+// comparisons into the word in one instruction, so the 512 samples never
+// leave registers (the TPU kernel's one-hot MXU row select, patch
 // DMA and 8/128-aligned corners have no counterpart here).
 
 #include <cuda_runtime.h>
@@ -41,11 +43,12 @@ __device__ __forceinline__ float sample(const float* __restrict__ img, int h, in
 
 __global__ void brief_kernel(const float* __restrict__ img, const float* __restrict__ xy,
                              const float* __restrict__ cosa, const float* __restrict__ sina,
-                             const int* __restrict__ pattern, int* __restrict__ desc, int n,
-                             int h, int w) {
+                             const int* __restrict__ pattern, int* __restrict__ desc,
+                             int total, int n, int h, int w) {
   const int k = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (k >= n) return;  // uniform per warp
+  if (k >= total) return;  // uniform per warp
+  img += static_cast<size_t>(k / n) * h * w;
   const float kx = xy[2 * k];
   const float ky = xy[2 * k + 1];
   const float c = cosa[k];
@@ -63,17 +66,19 @@ __global__ void brief_kernel(const float* __restrict__ img, const float* __restr
 
 }  // namespace
 
-// img: (h, w) float32 integer-rounded blur; xy: (n, 2) float32 (x, y);
-// cosa, sina: (n,) float32; pattern: (256, 2, 2) int32; desc: (n, 8) int32
-// out (the uint32 words' bits).  All contiguous on the device.  Returns
-// the cudaError_t of the launch (0 on success).
+// img: (batch, h, w) float32 integer-rounded blur; xy: (batch, n, 2)
+// float32 (x, y); cosa, sina: (batch, n) float32; pattern: (256, 2, 2)
+// int32; desc: (batch, n, 8) int32 out (the uint32 words' bits).  All
+// contiguous on the device.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int mslam_brief(const float* img, const float* xy, const float* cosa,
-                           const float* sina, const int* pattern, int* desc, int n, int h,
-                           int w, void* stream) {
-  if (n == 0) return 0;
+                           const float* sina, const int* pattern, int* desc, int batch,
+                           int n, int h, int w, void* stream) {
+  const int total = batch * n;
+  if (total == 0) return 0;
   const int warps_per_block = 4;
-  const int grid = (n + warps_per_block - 1) / warps_per_block;
+  const int grid = (total + warps_per_block - 1) / warps_per_block;
   brief_kernel<<<grid, 32 * warps_per_block, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, xy, cosa, sina, pattern, desc, n, h, w);
+      img, xy, cosa, sina, pattern, desc, total, n, h, w);
   return static_cast<int>(cudaGetLastError());
 }

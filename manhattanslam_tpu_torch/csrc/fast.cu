@@ -1,9 +1,11 @@
-// Dense FAST-9/16 corner score for one pyramid level.
+// Dense FAST-9/16 corner score for one pyramid level of B images.
 //
-// Replaces the Pallas TPU kernel _fast_kernel / _fast_kernel_batched
-// (manhattanslam_tpu/ops/fast_pallas.py).  score(p) = max(0, max over the
-// 16 rotations r of min_{k<9} d[(r+k)%16]) over the bright differences
-// d_k = I(p + o_k) - I(p) and the dark ones -d_k; the 3-px border is 0.
+// Replaces the Pallas TPU kernels _fast_kernel and _fast_kernel_batched
+// (manhattanslam_tpu/ops/fast_pallas.py): grid z runs over the B images of
+// a (B, h, w) stack, so one launch serves the single stream (B = 1) and
+// the batched replay.  score(p) = max(0, max over the 16 rotations r of
+// min_{k<9} d[(r+k)%16]) over the bright differences d_k = I(p + o_k) -
+// I(p) and the dark ones -d_k; the 3-px border is 0.
 // Bit-identical with the plain PyTorch version: the same float32
 // subtractions, then exact min/max.
 //
@@ -39,6 +41,9 @@ __device__ __forceinline__ int circle_dx(int k) {
 
 __global__ void fast_score_kernel(const float* __restrict__ img,
                                   float* __restrict__ out, int h, int w) {
+  const size_t plane = static_cast<size_t>(blockIdx.z) * h * w;
+  img += plane;
+  out += plane;
   __shared__ float tile[kTH + 2 * kHalo][kTW + 2 * kHalo];
   const int x0 = blockIdx.x * kTW;
   const int y0 = blockIdx.y * kTH;
@@ -84,12 +89,13 @@ __global__ void fast_score_kernel(const float* __restrict__ img,
 
 }  // namespace
 
-// img, out: (h, w) float32, contiguous, on the device.  Returns the
+// img, out: (batch, h, w) float32, contiguous, on the device.  Returns the
 // cudaError_t of the launch (0 on success).
-extern "C" int mslam_fast_score(const float* img, float* out, int h, int w,
+extern "C" int mslam_fast_score(const float* img, float* out, int batch, int h, int w,
                                 void* stream) {
+  if (batch == 0) return 0;
   const dim3 block(kTW, kTH);
-  const dim3 grid((w + kTW - 1) / kTW, (h + kTH - 1) / kTH);
+  const dim3 grid((w + kTW - 1) / kTW, (h + kTH - 1) / kTH, batch);
   fast_score_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(img, out, h, w);
   return static_cast<int>(cudaGetLastError());
 }

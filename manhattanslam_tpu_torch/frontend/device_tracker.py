@@ -15,6 +15,10 @@ The map view (landmarks + the reference keyframe's banks) lives on the
 device and is updated in place only at keyframe events, from a row diff
 of two host snapshots.  The plane, line and Manhattan branches of the
 reference step come with the slices that add them.
+
+The body is written once, for B streams that share one map view
+(``build_batched_body``, the batched replay of parallel/mesh.py);
+the single-stream body is its B = 1 case.
 """
 
 from __future__ import annotations
@@ -163,9 +167,13 @@ def init_carry(
 
 
 # --------------------------------------------------------------- the step
-def build_frame_body(cfg: SlamConfig, device):
-    """Returns body(gray (H,W) f32, depth (H,W) f32 m, carry, view) ->
-    (result, new_carry), every tensor on `device`."""
+def build_batched_body(cfg: SlamConfig, device):
+    """Returns body(gray (B,H,W) f32, depth (B,H,W) f32 m, carry, view) ->
+    (result, new_carry) for B independent streams that share one map view
+    (the reference's ``jax.vmap(body, in_axes=(0, 0, None))``): every
+    carry and result tensor has a leading stream axis B, the view none.
+    The streams run as one batch per op (no loop over streams), so a step
+    launches the same kernels whatever B is."""
     device = torch.device(device)
     extract = build_extractor(cfg, device)
     K = torch.from_numpy(cfg.camera.K).to(device)
@@ -177,53 +185,61 @@ def build_frame_body(cfg: SlamConfig, device):
     close_th = float(np.float32(cfg.th_depth_m))
 
     def body(gray, depth, carry, view):
+        B = gray.shape[0]
+
+        def shared(x):  # the one view, broadcast to the B streams (no copy)
+            return x.expand((B,) + x.shape)
+
         feats = extract(gray, depth)
         T_last = carry["T_last"]
         have_vel = carry["have_velocity"]
-        T_seed = torch.where(have_vel, carry["velocity"] @ T_last, T_last)
+        T_seed = torch.where(have_vel[:, None, None], carry["velocity"] @ T_last, T_last)
 
         # temporal landmarks: the previous frame's keypoints with depth,
         # back-projected with the previous pose (TrackWithMotionModel /
-        # UpdateLastFrame), appended to the landmark bank
+        # UpdateLastFrame), appended to each stream's landmark bank
         T_last_wc = se3.inverse(T_last)
         pd = carry["prev_depth"]
         pxy = carry["prev_xy_und"]
         vo_cam = torch.stack(
-            [(pxy[:, 0] - K[0, 2]) / K[0, 0] * pd, (pxy[:, 1] - K[1, 2]) / K[1, 1] * pd, pd],
+            [(pxy[..., 0] - K[0, 2]) / K[0, 0] * pd, (pxy[..., 1] - K[1, 2]) / K[1, 1] * pd, pd],
             -1,
         )
-        vo_pos = vo_cam @ T_last_wc[:3, :3].T + T_last_wc[:3, 3]
+        vo_pos = vo_cam @ T_last_wc[:, :3, :3].transpose(-1, -2) + T_last_wc[:, None, :3, 3]
         vo_on = carry["map_inl_last"] < 30
-        vo_valid = carry["prev_valid"] & (pd > 0) & have_vel & carry["vo_points"] & vo_on
-        vo_dir = vo_pos - T_last_wc[:3, 3][None]
+        vo_valid = (
+            carry["prev_valid"] & (pd > 0) & (have_vel & carry["vo_points"] & vo_on)[:, None]
+        )
+        vo_dir = vo_pos - T_last_wc[:, None, :3, 3]
         vo_dist = torch.linalg.norm(vo_dir, dim=-1).clamp(min=1e-6)
 
         n_map = view["mp_pos"].shape[0]
         mp_view = {
-            "pos": torch.cat([view["mp_pos"], vo_pos]),
-            "desc": torch.cat([view["mp_desc"], carry["prev_desc"]]),
-            "valid": torch.cat([view["mp_valid"], vo_valid]),
-            "normal": torch.cat([view["mp_normal"], vo_dir / vo_dist[:, None]]),
-            "min_dist": torch.cat([view["mp_min"], torch.zeros_like(vo_dist)]),
+            "pos": torch.cat([shared(view["mp_pos"]), vo_pos], 1),
+            "desc": torch.cat([shared(view["mp_desc"]), carry["prev_desc"]], 1),
+            "valid": torch.cat([shared(view["mp_valid"]), vo_valid], 1),
+            "normal": torch.cat([shared(view["mp_normal"]), vo_dir / vo_dist[..., None]], 1),
+            "min_dist": torch.cat([shared(view["mp_min"]), torch.zeros_like(vo_dist)], 1),
             "max_dist": torch.cat(
                 [
-                    view["mp_max"],
+                    shared(view["mp_max"]),
                     vo_dist * torch.pow(sf_t, carry["prev_level"].to(torch.float32)) * 2.0,
-                ]
+                ],
+                1,
             ),
             # rotation-histogram gate on the temporal block only
-            "angle": torch.cat([torch.zeros(n_map, device=device), carry["prev_angle"]]),
+            "angle": torch.cat([torch.zeros((B, n_map), device=device), carry["prev_angle"]], 1),
             "rot_gate": torch.cat(
-                [torch.zeros(n_map, dtype=torch.bool, device=device), vo_valid]
+                [torch.zeros((B, n_map), dtype=torch.bool, device=device), vo_valid], 1
             ),
         }
-        # ONE frustum compaction shared by every solve of the frame
+        # ONE frustum compaction per stream, shared by every solve of the frame
         cand = matching.frustum_candidates(
             mp_view, T_seed, K, hw, CAND_CAP, scale_factor=sf, n_levels=nl,
             use_scale_gate=True,
         )
 
-        # candidate solves as one batch of three keypoint-indexed problems:
+        # candidate solves as one batch of 3B keypoint-indexed problems:
         # motion-model projection (r=7), reference-KF descriptors, and the
         # widened projection retry (r=14) that the reference runs when the
         # motion model matched fewer than 20 points
@@ -232,26 +248,27 @@ def build_frame_body(cfg: SlamConfig, device):
         )
         ref_safe = torch.clamp(view["ref_mp"], min=0).long()
         ref_view = {
-            "pos": view["mp_pos"][ref_safe],
-            "desc": view["ref_desc"],
-            "valid": (view["ref_mp"] >= 0) & view["mp_valid"][ref_safe],
+            "pos": shared(view["mp_pos"][ref_safe]),
+            "desc": shared(view["ref_desc"]),
+            "valid": shared((view["ref_mp"] >= 0) & view["mp_valid"][ref_safe]),
         }
-        prob_c, _, _ = tracking_ops.descriptor_problem(ref_view, feats, view["ref_angle"])
+        prob_c, _, _ = tracking_ops.descriptor_problem(ref_view, feats, shared(view["ref_angle"]))
         prob_r, _ = tracking_ops.projection_problem(
             mp_view, T_seed, feats, K, 14.0, hw, cand, scale_factor=sf, bank_stats=False
         )
         outs = lm.solve_pose(
             lm.stack_problems([prob_a, prob_c, prob_r]),
-            torch.stack([T_seed, T_last, T_seed]), K, bf,
+            torch.cat([T_seed, T_last, T_seed]), K, bf,
             n_rounds=2, n_iters=4, gauss_newton=True,
         )
-        n_pt = outs["n_inliers"]
+        T_a, T_c, T_r = outs["T"].reshape(3, B, 4, 4)
+        n_a, n_c, n_r = outs["n_inliers"].reshape(3, B)
         take_a = aux_a["n_matches"] >= 20
-        T_ab = torch.where(take_a, outs["T"][0], outs["T"][2])
-        n_ab = torch.where(take_a, n_pt[0], n_pt[2])
+        T_ab = torch.where(take_a[:, None, None], T_a, T_r)
+        n_ab = torch.where(take_a, n_a, n_r)
         ok_ab = (n_ab >= 10) & have_vel
-        ok_c = n_pt[1] >= 10
-        T_init = torch.where(ok_ab, T_ab, outs["T"][1])
+        ok_c = n_c >= 10
+        T_init = torch.where(ok_ab[:, None, None], T_ab, T_c)
         init_ok = ok_ab | ok_c
 
         # final solve: 4 chi2-gated rounds of 5 LM iterations
@@ -262,24 +279,23 @@ def build_frame_body(cfg: SlamConfig, device):
         # one polar projection per frame pins the rotation block's f32
         # non-orthonormal drift (velocity @ T_last compounds it)
         T_final = out_f["T"].clone()
-        T_final[:3, :3] = se3.polar_rotation(T_final[:3, :3], iters=2)
+        T_final[:, :3, :3] = se3.polar_rotation(T_final[:, :3, :3], iters=2)
         n_pt_f = out_f["n_pt_inliers"].to(torch.int32)
         n_inl = n_pt_f
         tracked_ok = init_ok & (n_pt_f >= 7) & (n_inl >= 7)
+        ok3 = tracked_ok[:, None, None]
 
         # matches to the temporal block (bank index >= n_map) count as
         # inliers but are not map associations
         kp_mp_ext = out_f["kp_mp"]
         kp_mp = torch.where(kp_mp_ext >= n_map, -1, kp_mp_ext)
-        n_map_inliers = (kp_mp >= 0).sum().to(torch.int32)
+        n_map_inliers = (kp_mp >= 0).sum(-1).to(torch.int32)
         close = feats["valid"] & (feats["depth"] > 0) & (feats["depth"] < close_th)
         kp_matched = kp_mp >= 0
 
         new_carry = {
-            "T_last": torch.where(tracked_ok, T_final, T_last),
-            "velocity": torch.where(
-                tracked_ok, T_final @ se3.inverse(T_last), carry["velocity"]
-            ),
+            "T_last": torch.where(ok3, T_final, T_last),
+            "velocity": torch.where(ok3, T_final @ se3.inverse(T_last), carry["velocity"]),
             "have_velocity": tracked_ok,
             "vo_points": carry["vo_points"],
             "map_inl_last": torch.where(tracked_ok, n_map_inliers, 0),
@@ -288,7 +304,7 @@ def build_frame_body(cfg: SlamConfig, device):
             "prev_desc": feats["desc"],
             "prev_level": feats["level"],
             "prev_angle": feats["angle"],
-            "prev_valid": feats["valid"] & tracked_ok,
+            "prev_valid": feats["valid"] & tracked_ok[:, None],
         }
         result = {
             "T": T_final,
@@ -296,11 +312,11 @@ def build_frame_body(cfg: SlamConfig, device):
             "n_inliers": n_inl,
             "n_map_inliers": n_map_inliers,
             "n_matches": out_f["n_matches"],
-            "tracked_close": (close & kp_matched).sum(),
-            "nontracked_close": (close & ~kp_matched).sum(),
+            "tracked_close": (close & kp_matched).sum(-1),
+            "nontracked_close": (close & ~kp_matched).sum(-1),
             "kp_mp": kp_mp,
-            "matched": out_f["matched"][:n_map],
-            "visible": out_f["visible"][:n_map],
+            "matched": out_f["matched"][:, :n_map],
+            "visible": out_f["visible"][:, :n_map],
             "feats": feats,
         }
         return result, new_carry
@@ -308,16 +324,40 @@ def build_frame_body(cfg: SlamConfig, device):
     return body
 
 
+def _first_stream(tree: dict) -> dict:
+    return {k: _first_stream(v) if isinstance(v, dict) else v[0] for k, v in tree.items()}
+
+
+def build_frame_body(cfg: SlamConfig, device):
+    """Returns body(gray (H,W) f32, depth (H,W) f32 m, carry, view) ->
+    (result, new_carry), every tensor on `device`: the batched body at
+    B = 1, with the stream axis added to the inputs and taken off the
+    outputs."""
+    batched = build_batched_body(cfg, device)
+
+    def body(gray, depth, carry, view):
+        result, new_carry = batched(
+            gray[None], depth[None], {k: v[None] for k, v in carry.items()}, view
+        )
+        return _first_stream(result), _first_stream(new_carry)
+
+    return body
+
+
+def frame_to_float(gray8: torch.Tensor, d16: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sensor-native frames (u8 gray, depth in DEPTH_QUANT units, any
+    leading axes) -> float32 gray and depth in meters, on their device."""
+    inv_q = float(np.float32(1.0 / DEPTH_QUANT))
+    return gray8.to(torch.float32), d16.to(torch.float32) * inv_q
+
+
 def build_frame_step(cfg: SlamConfig, device):
     """Returns step(gray8 (H,W) uint8, d16 (H,W) int32 in DEPTH_QUANT
     units, carry, view) -> (result, new_carry): the frame's device program."""
     body = build_frame_body(cfg, device)
-    inv_q = float(np.float32(1.0 / DEPTH_QUANT))
 
     def step(gray8, d16, carry, view):
-        gray = gray8.to(torch.float32)
-        depth = d16.to(torch.float32) * inv_q
-        return body(gray, depth, carry, view)
+        return body(*frame_to_float(gray8, d16), carry, view)
 
     return step
 

@@ -7,7 +7,10 @@ top-K -> IC angle (kernel) -> integer-rounded blur -> steered BRIEF
 right-image coordinate uR = u - bf/d (ComputeStereoFromRGBD).
 
 The output is a dict of (max_keypoints,)-shaped tensors with a validity
-mask, exactly the reference's frame-feature layout.
+mask, exactly the reference's frame-feature layout.  Every function also
+takes B streams' frames (B, H, W) and then returns (B, max_keypoints, ...)
+features, as the reference's vmapped replay does; the three kernels run
+once per pyramid level for all B streams.
 """
 
 from __future__ import annotations
@@ -23,15 +26,15 @@ from manhattanslam_tpu_torch.ops import orb as orb_ops
 def undistort_points(xy: torch.Tensor, cfg: SlamConfig) -> torch.Tensor:
     """Iterative inverse of the radial-tangential model (cv::undistortPoints).
 
-    xy: (N, 2) pixel coords in the distorted image -> undistorted pixels.
+    xy: (..., N, 2) pixel coords in the distorted image -> undistorted pixels.
     """
     cam = cfg.camera
     if not cam.has_distortion:
         return xy
     fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
     k1, k2, k3, p1, p2 = cam.k1, cam.k2, cam.k3, cam.p1, cam.p2
-    xd = (xy[:, 0] - cx) / fx
-    yd = (xy[:, 1] - cy) / fy
+    xd = (xy[..., 0] - cx) / fx
+    yd = (xy[..., 1] - cy) / fy
     x, y = xd, yd
     for _ in range(8):
         r2 = x * x + y * y
@@ -47,31 +50,33 @@ def level_keypoints(
     level_img: torch.Tensor, n_out: int, cfg: SlamConfig
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """FAST corners (kernel) with the per-cell fallback and NMS, kept off
-    the EDGE_THRESHOLD border, then the grid top-K: (xy, response, valid)."""
-    h, w = level_img.shape
+    the EDGE_THRESHOLD border, then the grid top-K: (xy, response, valid)
+    of each level image (..., H, W)."""
+    h, w = level_img.shape[-2:]
     score = fast_ops.fast_corners(
         level_img, cell=30, ini_th=cfg.orb.ini_th_fast, min_th=cfg.orb.min_th_fast
     )
     # keep-out border so the orientation/descriptor patch reads are valid
     b = orb_ops.EDGE_THRESHOLD
     inner = torch.zeros_like(score)
-    inner[b : h - b, b : w - b] = score[b : h - b, b : w - b]
+    inner[..., b : h - b, b : w - b] = score[..., b : h - b, b : w - b]
     k_per_cell = max(2, min(8, (4 * n_out) // max((h // 32) * (w // 32), 1) + 1))
     return orb_ops.select_grid_topk(inner, n_out, cell=32, k_per_cell=k_per_cell)
 
 
 def _extract_level(level_img: torch.Tensor, n_out: int, cfg: SlamConfig) -> dict:
-    """Extract n_out oriented, described keypoints from one pyramid level."""
-    h, w = level_img.shape
+    """Extract n_out oriented, described keypoints from one pyramid level
+    (..., H, W)."""
+    lead, (h, w) = level_img.shape[:-2], level_img.shape[-2:]
     dev = level_img.device
     if min(h, w) < 2 * orb_ops.EDGE_THRESHOLD + 3:
         # level too small for the 31x31 patch window: no keypoints
         return {
-            "xy": torch.zeros((n_out, 2), device=dev),
-            "response": torch.zeros(n_out, device=dev),
-            "valid": torch.zeros(n_out, dtype=torch.bool, device=dev),
-            "angle": torch.zeros(n_out, device=dev),
-            "desc": torch.zeros((n_out, 8), dtype=torch.int32, device=dev),
+            "xy": torch.zeros(lead + (n_out, 2), device=dev),
+            "response": torch.zeros(lead + (n_out,), device=dev),
+            "valid": torch.zeros(lead + (n_out,), dtype=torch.bool, device=dev),
+            "angle": torch.zeros(lead + (n_out,), device=dev),
+            "desc": torch.zeros(lead + (n_out, 8), dtype=torch.int32, device=dev),
         }
     xy, resp, valid = level_keypoints(level_img, n_out, cfg)
     angle = orb_ops.ic_angle(level_img, xy)
@@ -85,7 +90,8 @@ def _extract_level(level_img: torch.Tensor, n_out: int, cfg: SlamConfig) -> dict
 def build_extractor(cfg: SlamConfig, device: torch.device):
     """Returns extract(gray, depth) -> frame-features dict on `device`.
 
-    gray: (H, W) float32 [0,255]; depth: (H, W) float32 meters (0 invalid).
+    gray: (H, W) float32 [0,255]; depth: (H, W) float32 meters (0 invalid);
+    or (B, H, W) each for B streams, giving (B, max_keypoints, ...) features.
     """
     n_levels = cfg.orb.n_levels
     scale = cfg.orb.scale_factor
@@ -100,32 +106,34 @@ def build_extractor(cfg: SlamConfig, device: torch.device):
     ]
 
     def extract(gray: torch.Tensor, depth: torch.Tensor) -> dict:
+        lead = gray.shape[:-2]
+        kp_axis = len(lead)  # the keypoint axis of every feature
         levels = image_ops.build_pyramid(gray, operators)
         parts = []
         for li in range(n_levels):
             out = _extract_level(levels[li], budgets[li], cfg)
             out["xy"] = out["xy"] * float(scale**li)  # level-0 (distorted) pixels
-            out["level"] = level_ids[li]
+            out["level"] = level_ids[li].expand(lead + (-1,))
             parts.append(out)
-        feats = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
-        n = feats["xy"].shape[0]
+        feats = {k: torch.cat([p[k] for p in parts], dim=kp_axis) for k in parts[0]}
+        n = feats["xy"].shape[kp_axis]
         if n < cap:  # pad to capacity
             feats = {
-                k: torch.cat([v, v.new_zeros((cap - n,) + tuple(v.shape[1:]))])
+                k: torch.cat([v, v.new_zeros(lead + (cap - n,) + v.shape[kp_axis + 1 :])], kp_axis)
                 for k, v in feats.items()
             }
-        feats = {k: v[:cap] for k, v in feats.items()}
+        feats = {k: v.narrow(kp_axis, 0, cap) for k, v in feats.items()}
 
         # depth lookup at the detected (distorted) position
-        xi = torch.clamp(torch.round(feats["xy"][:, 0]).to(torch.int64), 0, W - 1)
-        yi = torch.clamp(torch.round(feats["xy"][:, 1]).to(torch.int64), 0, H - 1)
-        d = depth[yi, xi]
+        xi = torch.clamp(torch.round(feats["xy"][..., 0]).to(torch.int64), 0, W - 1)
+        yi = torch.clamp(torch.round(feats["xy"][..., 1]).to(torch.int64), 0, H - 1)
+        d = orb_ops.gather_pixels(depth, yi * W + xi)
         feats["depth"] = torch.where(feats["valid"], d, torch.zeros_like(d))
         feats["xy_und"] = undistort_points(feats["xy"], cfg)
         # virtual right-image u (ComputeStereoFromRGBD): uR = u - bf/d
         feats["u_right"] = torch.where(
             d > 0,
-            feats["xy_und"][:, 0] - bf / torch.clamp(d, min=1e-6),
+            feats["xy_und"][..., 0] - bf / torch.clamp(d, min=1e-6),
             torch.full_like(d, -1.0),
         )
         # scale-sigma info per keypoint (LM information weights)
@@ -140,7 +148,7 @@ def backproject_keypoints(feats: dict, cfg: SlamConfig) -> torch.Tensor:
     (Frame::UnprojectStereo)."""
     cam = cfg.camera
     d = feats["depth"]
-    x = (feats["xy_und"][:, 0] - cam.cx) / cam.fx * d
-    y = (feats["xy_und"][:, 1] - cam.cy) / cam.fy * d
+    x = (feats["xy_und"][..., 0] - cam.cx) / cam.fx * d
+    y = (feats["xy_und"][..., 1] - cam.cy) / cam.fy * d
     pts = torch.stack([x, y, d], -1)
-    return torch.where((d > 0)[:, None], pts, torch.zeros_like(pts))
+    return torch.where((d > 0)[..., None], pts, torch.zeros_like(pts))

@@ -5,6 +5,10 @@ Projection matching (TrackWithMotionModel / TrackLocalMap) and pure
 descriptor matching against the reference keyframe (TrackReferenceKeyFrame)
 each become a keypoint-indexed ``PoseProblem``; ``track_projection`` adds
 the solve and the match bookkeeping.
+
+The functions take one frame's arrays or B streams' arrays with a leading
+stream axis (the reference's vmapped replay).  A PoseProblem always has
+one batch axis: B streams give a batch of B, one frame a batch of one.
 """
 
 from __future__ import annotations
@@ -17,18 +21,20 @@ from manhattanslam_tpu_torch.ops import lm, matching
 def build_point_problem(
     pts_pos: torch.Tensor, kp_idx: torch.Tensor, matched: torch.Tensor, feats: dict
 ) -> lm.PoseProblem:
-    """Gather matched observations into a (1, N) PoseProblem: stereo
-    (u, v, uR) when the keypoint has depth (uR > 0), mono otherwise."""
+    """Gather matched observations into a (B, N) PoseProblem (B = 1 for
+    one frame's (N,) arrays): stereo (u, v, uR) when the keypoint has depth
+    (uR > 0), mono otherwise."""
     kp = kp_idx.long()
-    uv = feats["xy_und"][kp]
-    ur = feats["u_right"][kp]
-    return lm.PoseProblem(
-        pt_xw=pts_pos[None],
-        pt_obs=torch.cat([uv, ur[:, None]], -1)[None],
-        pt_info=feats["inv_sigma2"][kp][None],
-        pt_stereo=(ur > 0)[None],
-        pt_mask=matched[None],
+    uv = matching.take_rows(feats["xy_und"], kp)
+    ur = feats["u_right"].gather(-1, kp)
+    prob = lm.PoseProblem(
+        pt_xw=pts_pos,
+        pt_obs=torch.cat([uv, ur[..., None]], -1),
+        pt_info=feats["inv_sigma2"].gather(-1, kp),
+        pt_stereo=ur > 0,
+        pt_mask=matched,
     )
+    return prob if kp.dim() == 2 else lm.PoseProblem(*(f[None] for f in prob))
 
 
 def projection_problem(
@@ -45,17 +51,19 @@ def projection_problem(
     """Projection matching in the shared frustum candidate set `cand`
     (matching.frustum_candidates) -> keypoint-indexed PoseProblem (no
     solve).  bank_stats=False skips the bank-level scatter outputs."""
-    n_kp = feats["desc"].shape[0]
-    n_bank = pts["pos"].shape[0]
-    CAND = cand["pos"].shape[0]
+    n_kp = feats["desc"].shape[-2]
+    n_bank = pts["pos"].shape[-2]
+    CAND = cand["pos"].shape[-2]
     h, w = image_hw
     uv, z = matching.project_points(T_seed, cand["pos"], K)
-    in_img = (z > 0.05) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) & (uv[:, 1] < h)
+    in_img = (
+        (z > 0.05) & (uv[..., 0] >= 0) & (uv[..., 0] < w) & (uv[..., 1] >= 0) & (uv[..., 1] < h)
+    )
     c_valid = cand["valid"] & in_img
-    rad = radius * torch.pow(scale_factor, cand["level"].to(torch.float32))
-    duv = feats["xy_und"][None, :, :] - uv[:, None, :]
-    pix_ok = (duv[..., 0].abs() <= rad[:, None]) & (duv[..., 1].abs() <= rad[:, None])
-    pix_ok = pix_ok & ((feats["level"][None, :] - cand["level"][:, None]).abs() <= 1)
+    rad = radius * torch.pow(scale_factor, cand["level"].to(torch.float32))[..., None]
+    duv = feats["xy_und"][..., None, :, :] - uv[..., :, None, :]  # (..., CAND, n_kp, 2)
+    pix_ok = (duv[..., 0].abs() <= rad) & (duv[..., 1].abs() <= rad)
+    pix_ok = pix_ok & ((feats["level"][..., None, :] - cand["level"][..., :, None]).abs() <= 1)
     c_kp, c_dist, c_ok = matching.match_descriptors(
         cand["desc"], feats["desc"], c_valid, feats["valid"],
         max_dist=matching.TH_HIGH, extra_mask=pix_ok,
@@ -67,7 +75,7 @@ def projection_problem(
         # no keypoint angle and pass through untouched
         gated = cand["rot_gate"] & c_valid
         rot_ok = matching.rotation_consistency_mask(
-            cand["angle"], feats["angle"][c_kp.long()], gated & c_ok
+            cand["angle"], feats["angle"].gather(-1, c_kp.long()), gated & c_ok
         )
         c_ok = torch.where(gated, rot_ok, c_ok)
     # candidate -> keypoint assignment (one-to-one after resolution)
@@ -77,48 +85,50 @@ def projection_problem(
     )
     matched_kp = cand_of_kp >= 0
     safe_c = torch.clamp(cand_of_kp, min=0).long()
-    point_of_kp = torch.where(matched_kp, cand["bank_idx"][safe_c], -1)
+    point_of_kp = torch.where(matched_kp, cand["bank_idx"].gather(-1, safe_c), -1)
     prob = build_point_problem(
-        cand["pos"][safe_c],
-        torch.arange(n_kp, dtype=torch.int32, device=tgt.device),
+        matching.take_rows(cand["pos"], safe_c),
+        torch.arange(n_kp, dtype=torch.int32, device=tgt.device).expand(matched_kp.shape),
         matched_kp, feats,
     )
     aux = {
         "point_of_kp": point_of_kp,
         "matched_kp": matched_kp,
         "visible": cand["visible_bank"],
-        "n_matches": matched_kp.sum(),
+        "n_matches": matched_kp.sum(-1),
     }
     if bank_stats:
         tgt_bank = torch.where(c_ok, cand["bank_idx"], n_bank).long()
-        aux["kp_idx"] = torch.zeros(n_bank + 1, dtype=torch.int32, device=tgt.device).scatter(
-            0, tgt_bank, c_kp
-        )[:n_bank]
-        aux["match_valid"] = torch.zeros(n_bank + 1, dtype=torch.bool, device=tgt.device).scatter(
-            0, tgt_bank, torch.ones_like(c_ok)
-        )[:n_bank]
+        lead = tgt_bank.shape[:-1]
+        aux["kp_idx"] = torch.zeros(
+            lead + (n_bank + 1,), dtype=torch.int32, device=tgt.device
+        ).scatter(-1, tgt_bank, c_kp)[..., :n_bank]
+        aux["match_valid"] = torch.zeros(
+            lead + (n_bank + 1,), dtype=torch.bool, device=tgt.device
+        ).scatter(-1, tgt_bank, torch.ones_like(c_ok))[..., :n_bank]
     return prob, aux
 
 
 def projection_post(out: dict, aux: dict, n_bank: int) -> dict:
-    """Attach match bookkeeping to a (batch-1) solve result."""
+    """Attach match bookkeeping (B streams, (B, ...)) to the solve result
+    of their B problems."""
     point_of_kp = aux["point_of_kp"]
     matched_kp = aux["matched_kp"]
-    kp_inlier = out["inlier_pt"][0]
+    kp_inlier = out["inlier_pt"]
     hit = kp_inlier & matched_kp
     res = {
-        "T": out["T"][0],
+        "T": out["T"],
         "kp_mp": torch.where(kp_inlier, point_of_kp, -1),
         "kp_inlier": kp_inlier,
         "n_matches": aux["n_matches"],
-        "n_pt_inliers": hit.sum(),
+        "n_pt_inliers": hit.sum(-1),
         "visible": aux["visible"],
     }
     if "match_valid" in aux:
         tgt = torch.where(hit, point_of_kp, n_bank).long()
-        inlier_bank = torch.zeros(n_bank + 1, dtype=torch.bool, device=tgt.device).scatter(
-            0, tgt, torch.ones_like(hit)
-        )[:n_bank]
+        inlier_bank = torch.zeros(
+            tgt.shape[:-1] + (n_bank + 1,), dtype=torch.bool, device=tgt.device
+        ).scatter(-1, tgt, torch.ones_like(hit))[..., :n_bank]
         res.update(
             matched=aux["match_valid"] & inlier_bank,
             pt_inlier=inlier_bank,
@@ -142,16 +152,17 @@ def track_projection(
     gauss_newton: bool = False,
     bank_stats: bool = True,
 ) -> dict:
-    """Project the landmark bank from the seed pose, match, solve."""
+    """Project each stream's landmark bank (B, N, ...) from its seed pose
+    T_seed (B, 4, 4), match, solve: one batch of B problems."""
     prob, aux = projection_problem(
         pts, T_seed, feats, K, radius, image_hw, cand,
         scale_factor=scale_factor, bank_stats=bank_stats,
     )
     out = lm.solve_pose(
-        prob, T_seed[None], K, bf, n_rounds=n_rounds, n_iters=n_iters,
+        prob, T_seed, K, bf, n_rounds=n_rounds, n_iters=n_iters,
         gauss_newton=gauss_newton,
     )
-    return projection_post(out, aux, pts["pos"].shape[0])
+    return projection_post(out, aux, pts["pos"].shape[-2])
 
 
 def descriptor_problem(
@@ -164,6 +175,6 @@ def descriptor_problem(
         pts["desc"], feats["desc"], pts["valid"], feats["valid"],
         max_dist=matching.TH_LOW, ratio=0.7,
     )
-    ok = matching.rotation_consistency_mask(kf_angles, feats["angle"][idx.long()], ok)
-    ok = matching.resolve_one_to_one(idx, dist, ok, feats["desc"].shape[0])
+    ok = matching.rotation_consistency_mask(kf_angles, feats["angle"].gather(-1, idx.long()), ok)
+    ok = matching.resolve_one_to_one(idx, dist, ok, feats["desc"].shape[-2])
     return build_point_problem(pts["pos"], idx, ok, feats), idx, ok

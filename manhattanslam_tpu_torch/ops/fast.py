@@ -6,6 +6,10 @@ plain PyTorch version ``fast_score_map_plain``; for a CUDA tensor it
 launches ``csrc/fast.cu`` (see the bound and design notes there) or
 raises.  ``fast_corners`` adds the reference's per-cell threshold
 fallback (iniThFAST / minThFAST) and 3x3 non-maximum suppression.
+
+Images are (H, W), or (B, H, W) for B streams (the reference's vmapped
+replay, whose batched Pallas twin ``_fast_kernel_batched`` grids over the
+batch): one kernel launch scores all B images.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ HALO = 3
 
 def fast_score_map_plain(img: torch.Tensor) -> torch.Tensor:
     """Dense FAST-9 score: max(0, max over the 16 rotations of the min over
-    a 9-arc of the circle differences), bright and dark; 3-px border 0."""
-    h, w = img.shape
+    a 9-arc of the circle differences), bright and dark; 3-px border 0.
+    img: (..., H, W)."""
+    h, w = img.shape[-2:]
     diffs = torch.stack([shift2d(img, dy, dx) for dy, dx in CIRCLE_OFFSETS]) - img[None]
 
     def arc_min(d):
@@ -40,23 +45,25 @@ def fast_score_map_plain(img: torch.Tensor) -> torch.Tensor:
     dark = arc_min(-diffs).amax(dim=0)
     score = torch.clamp(torch.maximum(bright, dark), min=0.0)
     out = torch.zeros_like(score)
-    out[HALO : h - HALO, HALO : w - HALO] = score[HALO : h - HALO, HALO : w - HALO]
+    out[..., HALO : h - HALO, HALO : w - HALO] = score[..., HALO : h - HALO, HALO : w - HALO]
     return out
 
 
 def fast_score_map(img: torch.Tensor) -> torch.Tensor:
-    """Dense FAST-9 score map of one (H, W) float32 image: the plain
-    version on the CPU, the CUDA kernel (counted) on the card."""
+    """Dense FAST-9 score map of an (H, W) or (B, H, W) float32 image
+    stack: the plain version on the CPU, one launch of the CUDA kernel
+    (counted) for all B images on the card."""
     if img.device.type == "cpu":
         return fast_score_map_plain(img)
     if img.device.type != "cuda":
         raise ValueError(f"fast_score_map: unsupported device {img.device}")
-    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
-        raise ValueError("fast_score_map: needs a contiguous (H, W) float32 image")
-    h, w = img.shape
+    if img.dtype != torch.float32 or img.dim() not in (2, 3) or not img.is_contiguous():
+        raise ValueError("fast_score_map: needs a contiguous (H, W) or (B, H, W) float32 image")
+    h, w = img.shape[-2:]
+    b = img.shape[0] if img.dim() == 3 else 1
     out = torch.empty_like(img)
     fn = kernel_build.kernel("fast")
-    err = fn(img.data_ptr(), out.data_ptr(), h, w,
+    err = fn(img.data_ptr(), out.data_ptr(), b, h, w,
              torch.cuda.current_stream(img.device).cuda_stream)
     kernel_build.check_launch("fast", err)
     fast_score_map.launches += 1
@@ -73,15 +80,17 @@ def fast_corners(
 
     A pixel survives if its score exceeds iniThFAST, or exceeds minThFAST
     in a cell where no pixel passed iniThFAST (ORBextractor.cc:763-769),
-    and it is a 3x3 local maximum.  Returns the masked score map.
+    and it is a 3x3 local maximum.  Returns the masked score map; img is
+    (..., H, W).
     """
-    h, w = img.shape
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
     score = fast_score_map(img)
     ch, cw = -(-h // cell), -(-w // cell)
     sp = F.pad(score, (0, cw * cell - w, 0, ch * cell - h))
-    cells = sp.reshape(ch, cell, cw, cell)
-    has_high = (cells > ini_th).any(dim=3).any(dim=1)  # (ch, cw)
-    has_high_full = has_high.repeat_interleave(cell, 0).repeat_interleave(cell, 1)[:h, :w]
+    cells = sp.reshape(*lead, ch, cell, cw, cell)
+    has_high = (cells > ini_th).any(dim=-1).any(dim=-3)  # (..., ch, cw)
+    has_high_full = has_high.repeat_interleave(cell, -2).repeat_interleave(cell, -1)
+    has_high_full = has_high_full[..., :h, :w]
     th = torch.where(has_high_full, float(ini_th), float(min_th))
     passed = score > th
     is_max = score >= maxpool3x3(score)

@@ -1,10 +1,12 @@
 """Image primitives: pyramid, separable Gaussian blur, 3x3 max filter
 (counterpart of manhattanslam_tpu/ops/image.py).
 
-The bilinear resize is two constant banded-matrix products,
-``R_y @ img @ R_x^T``, with the same operators as the reference; the blur
-keeps the reference's shifted-add order term by term, because the
-integer-rounded blur that BRIEF samples follows that rounding.
+Every function takes images (..., H, W): one image, or a stack of B
+streams' images (the batched replay), computed image by image with the
+same arithmetic.  The bilinear resize is two constant banded-matrix
+products, ``R_y @ img @ R_x^T``, with the same operators as the
+reference; the blur keeps the reference's shifted-add order term by term,
+because the integer-rounded blur that BRIEF samples follows that rounding.
 """
 
 from __future__ import annotations
@@ -51,13 +53,29 @@ def pyramid_operators(
     return ops
 
 
+def _resize(x: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
+    """ry @ img @ rx^T for every image of x (..., h, w).  A stack is
+    multiplied as two plain matrix products, the images side by side in
+    the row product ((h', h) @ (h, B*w)) and on top of each other in the
+    column product ((B*h', w) @ (w, w')), so each output element is the
+    dot product of the single-image path; at B = 1 they are its products."""
+    if x.dim() == 2:
+        return ry @ x @ rx.T
+    lead, (h, w) = x.shape[:-2], x.shape[-2:]
+    xb = x.reshape(-1, h, w)
+    b, oh = xb.shape[0], ry.shape[0]
+    rows = ry @ xb.transpose(0, 1).reshape(h, b * w)
+    out = rows.reshape(oh, b, w).transpose(0, 1).reshape(b * oh, w) @ rx.T
+    return out.reshape(*lead, oh, rx.shape[0])
+
+
 def build_pyramid(
     img: torch.Tensor, operators: list[tuple[torch.Tensor, torch.Tensor]]
 ) -> list[torch.Tensor]:
-    """Level 0 = img; each further level resizes the previous one."""
+    """Level 0 = img (..., H, W); each further level resizes the previous one."""
     levels = [img]
     for ry, rx in operators:
-        levels.append(ry @ levels[-1] @ rx.T)
+        levels.append(_resize(levels[-1], ry, rx))
     return levels
 
 
@@ -69,14 +87,17 @@ def _gauss_kernel1d(ksize: int, sigma: float) -> np.ndarray:
 
 
 def _conv1d_shifts(img: torch.Tensor, k: np.ndarray, axis: int, pad_mode: str) -> torch.Tensor:
-    """1-D stencil along `axis` as shifted adds, summed in tap order."""
+    """1-D stencil along `axis` (0 = rows, 1 = columns of each (H, W)
+    image) as shifted adds, summed in tap order."""
     r = len(k) // 2
+    h, w = img.shape[-2:]
     pad = (0, 0, r, r) if axis == 0 else (r, r, 0, 0)
-    x = F.pad(img[None, None], pad, mode=pad_mode)[0, 0]
-    n = img.shape[axis]
+    x = F.pad(img.reshape(-1, 1, h, w), pad, mode=pad_mode)
+    x = x.reshape(img.shape[:-2] + x.shape[-2:])
+    n = img.shape[-2 + axis]
     out = None
     for i, wt in enumerate(k):
-        term = float(wt) * (x[i : i + n] if axis == 0 else x[:, i : i + n])
+        term = float(wt) * (x[..., i : i + n, :] if axis == 0 else x[..., i : i + n])
         out = term if out is None else out + term
     return out
 
@@ -89,17 +110,18 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torc
 
 
 def shift2d(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """out[y, x] = img[y+dy, x+dx], zero-padded."""
-    h, w = img.shape
+    """out[..., y, x] = img[..., y+dy, x+dx], zero-padded."""
+    h, w = img.shape[-2:]
     out = torch.zeros_like(img)
     ys0, ys1 = max(dy, 0), min(h + dy, h)
     xs0, xs1 = max(dx, 0), min(w + dx, w)
     if ys0 >= ys1 or xs0 >= xs1:
         return out
-    out[ys0 - dy : ys1 - dy, xs0 - dx : xs1 - dx] = img[ys0:ys1, xs0:xs1]
+    out[..., ys0 - dy : ys1 - dy, xs0 - dx : xs1 - dx] = img[..., ys0:ys1, xs0:xs1]
     return out
 
 
 def maxpool3x3(x: torch.Tensor) -> torch.Tensor:
     """3x3 max filter with -inf outside the image (for NMS)."""
-    return F.max_pool2d(x[None, None], 3, stride=1, padding=1)[0, 0]
+    h, w = x.shape[-2:]
+    return F.max_pool2d(x.reshape(-1, 1, h, w), 3, stride=1, padding=1).reshape(x.shape)

@@ -29,11 +29,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each kernel source's entry point: (symbol, argtypes)
+# C signature of each kernel source's entry point: (symbol, argtypes).
+# Every kernel takes a leading stream count B (its images are (B, h, w)),
+# then the stream handle last.
 SIGNATURES = {
-    "fast": ("mslam_fast_score", (_P, _P, _I, _I, _P)),
-    "ic_angle": ("mslam_ic_angle", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "brief": ("mslam_brief", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    # img, out, B, h, w, stream
+    "fast": ("mslam_fast_score", (_P, _P, _I, _I, _I, _P)),
+    # img, xy, umax, angle, B, n, h, w, stream
+    "ic_angle": ("mslam_ic_angle", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # img, xy, cos, sin, pattern, desc, B, n, h, w, stream
+    "brief": ("mslam_brief", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

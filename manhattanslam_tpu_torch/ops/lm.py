@@ -103,11 +103,14 @@ def _jacobians(T: torch.Tensor, prob: PoseProblem, K: torch.Tensor, bf) -> torch
 
 
 def _solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched SPD solve A x = b through a Cholesky factor (no host sync:
-    a failed factorization leaves non-finite entries that the callers
-    reject)."""
+    """Batched SPD solve A x = b through a Cholesky factor and two
+    triangular solves (no host sync: a failed factorization leaves
+    non-finite entries that the callers reject).  Not cholesky_solve: on
+    CUDA it synchronizes with the host once per call for a batch of more
+    than one system."""
     L, _ = torch.linalg.cholesky_ex(A)
-    return torch.cholesky_solve(b[..., None], L)[..., 0]
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
 
 
 def _all_finite(x: torch.Tensor) -> torch.Tensor:

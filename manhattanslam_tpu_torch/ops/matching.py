@@ -6,6 +6,11 @@ descriptors, ``dist = (256 - a.b) / 2`` (exact: integer sums below 2^24);
 the reference's gates are masks: search radius by predicted scale,
 TH_HIGH / TH_LOW, best/second-best ratio, rotation-histogram consistency
 (HISTO_LENGTH=30, top-3 bins) and one-to-one conflict resolution.
+
+Every function takes one frame's arrays or B streams' arrays with a
+leading stream axis (the reference's vmapped replay).  Reductions,
+histograms and scatters run along the last axis, so one stream never
+reads or writes another's segment.
 """
 
 from __future__ import annotations
@@ -23,11 +28,21 @@ HISTO_LENGTH = 30
 BIG = 1e9
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (..., N, *tail) at row indices idx (..., M) -> (..., M, *tail);
+    x and idx have the same leading axes (none, or the stream axis)."""
+    axis = idx.dim() - 1
+    tail = x.shape[axis + 1 :]
+    full = idx.reshape(idx.shape + (1,) * len(tail)).expand(idx.shape + tail)
+    return torch.gather(x, axis, full)
+
+
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(N, 8) x (M, 8) int32 words -> (N, M) float32 Hamming distances."""
+    """(..., N, 8) x (..., M, 8) int32 words -> (..., N, M) float32
+    Hamming distances."""
     sa = 2.0 * unpack_descriptor_bits(desc_a) - 1.0
     sb = 2.0 * unpack_descriptor_bits(desc_b) - 1.0
-    return (256.0 - sa @ sb.T) * 0.5
+    return (256.0 - sa @ sb.transpose(-1, -2)) * 0.5
 
 
 def rotation_consistency_mask(
@@ -35,31 +50,39 @@ def rotation_consistency_mask(
 ) -> torch.Tensor:
     """Keep matches whose angle difference falls in the 3 most populated of
     30 bins (ORBmatcher::ComputeThreeMaxima; bins 2/3 dropped when weaker
-    than 0.1 x the first)."""
+    than 0.1 x the first); one histogram per stream."""
+    angle_a, angle_b, valid = torch.broadcast_tensors(angle_a, angle_b, valid)
     diff = torch.remainder(angle_a - angle_b, 2.0 * math.pi)
     bins = torch.clamp(
         (diff * (HISTO_LENGTH / (2.0 * math.pi))).to(torch.int64), 0, HISTO_LENGTH - 1
     )
-    hist = torch.zeros(HISTO_LENGTH, dtype=torch.int32, device=valid.device)
-    hist = hist.index_add(0, bins, valid.to(torch.int32))
+    hist = torch.zeros(valid.shape[:-1] + (HISTO_LENGTH,), dtype=torch.int32, device=valid.device)
+    hist = hist.scatter_add(-1, bins, valid.to(torch.int32))
     top3 = torch.topk(hist, 3).values
-    thresh = torch.maximum(top3[2], torch.ceil(0.1 * top3[0]).to(torch.int32))
-    keep_bin = hist >= torch.clamp(thresh, min=1)
-    return valid & keep_bin[bins]
+    thresh = torch.maximum(top3[..., 2], torch.ceil(0.1 * top3[..., 0]).to(torch.int32))
+    keep_bin = hist >= torch.clamp(thresh, min=1)[..., None]
+    return valid & keep_bin.gather(-1, bins)
+
+
+def _segment_reduce(values, seg_ids, n_segments: int, fill, reduce: str) -> torch.Tensor:
+    """Per-segment `reduce` along the last axis over ids in [0, n_segments)
+    (other ids land in a dropped slot); each stream has its own segments."""
+    values, seg_ids = torch.broadcast_tensors(values, seg_ids)
+    shape = seg_ids.shape[:-1] + (n_segments + 1,)
+    out = torch.full(shape, fill, dtype=values.dtype, device=values.device)
+    ids = torch.where((seg_ids >= 0) & (seg_ids < n_segments), seg_ids, n_segments)
+    out = out.scatter_reduce(-1, ids.long(), values, reduce, include_self=True)
+    return out[..., :n_segments]
 
 
 def segment_min(values, seg_ids, n_segments: int, fill) -> torch.Tensor:
     """Per-segment minimum over ids in [0, n_segments); other ids ignored."""
-    out = torch.full((n_segments + 1,), fill, dtype=values.dtype, device=values.device)
-    ids = torch.where((seg_ids >= 0) & (seg_ids < n_segments), seg_ids, n_segments)
-    return out.scatter_reduce(0, ids.long(), values, "amin", include_self=True)[:n_segments]
+    return _segment_reduce(values, seg_ids, n_segments, fill, "amin")
 
 
 def segment_max(values, seg_ids, n_segments: int, fill) -> torch.Tensor:
     """Per-segment maximum over ids in [0, n_segments); other ids ignored."""
-    out = torch.full((n_segments + 1,), fill, dtype=values.dtype, device=values.device)
-    ids = torch.where((seg_ids >= 0) & (seg_ids < n_segments), seg_ids, n_segments)
-    return out.scatter_reduce(0, ids.long(), values, "amax", include_self=True)[:n_segments]
+    return _segment_reduce(values, seg_ids, n_segments, fill, "amax")
 
 
 def resolve_one_to_one(
@@ -69,14 +92,13 @@ def resolve_one_to_one(
     (lowest source index among equals)."""
     d = torch.where(valid, dist, torch.full_like(dist, BIG))
     best_per_kp = segment_min(d, kp_idx, n_kp, BIG)
-    src = torch.arange(kp_idx.shape[0], dtype=torch.int32, device=kp_idx.device)
+    src = torch.arange(kp_idx.shape[-1], dtype=torch.int32, device=kp_idx.device)
     kp = kp_idx.long()
-    is_best = d <= best_per_kp[kp] + 1e-6
+    is_best = d <= best_per_kp.gather(-1, kp) + 1e-6
     first_src = segment_min(
-        torch.where(valid & is_best, src, torch.full_like(src, 1 << 30)),
-        kp_idx, n_kp, 1 << 30,
+        torch.where(valid & is_best, src, 1 << 30), kp_idx, n_kp, 1 << 30
     )
-    return valid & is_best & (first_src[kp] == src)
+    return valid & is_best & (first_src.gather(-1, kp) == src)
 
 
 def match_descriptors(
@@ -90,13 +112,13 @@ def match_descriptors(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest-neighbour matching A -> B; returns (idx_b, dist, valid)."""
     d = hamming_matrix(desc_a, desc_b)
-    allow = valid_a[:, None] & valid_b[None, :]
+    allow = valid_a[..., :, None] & valid_b[..., None, :]
     if extra_mask is not None:
         allow = allow & extra_mask
     d = torch.where(allow, d, torch.full_like(d, BIG))
-    best, idx = torch.min(d, dim=1)
-    cols = torch.arange(d.shape[1], device=d.device)
-    second = torch.where(cols[None, :] == idx[:, None], torch.full_like(d, BIG), d).amin(dim=1)
+    best, idx = torch.min(d, dim=-1)
+    cols = torch.arange(d.shape[-1], device=d.device)
+    second = torch.where(cols == idx[..., None], torch.full_like(d, BIG), d).amin(dim=-1)
     ok = best <= max_dist
     if ratio > 0:
         ok = ok & (best < ratio * second)
@@ -106,12 +128,13 @@ def match_descriptors(
 def project_points(
     T_cw: torch.Tensor, pts_w: torch.Tensor, K: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """World points -> (uv (N,2), z (N,)) in the camera of T_cw."""
-    pc = pts_w @ T_cw[:3, :3].T + T_cw[:3, 3]
-    z = pc[:, 2]
+    """World points (..., N, 3) -> (uv (..., N, 2), z (..., N)) in the
+    camera of T_cw (..., 4, 4)."""
+    pc = pts_w @ T_cw[..., :3, :3].transpose(-1, -2) + T_cw[..., None, :3, 3]
+    z = pc[..., 2]
     zi = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
-    u = pc[:, 0] / zi * K[0, 0] + K[0, 2]
-    v = pc[:, 1] / zi * K[1, 1] + K[1, 2]
+    u = pc[..., 0] / zi * K[0, 0] + K[0, 2]
+    v = pc[..., 1] / zi * K[1, 1] + K[1, 2]
     return torch.stack([u, v], -1), z
 
 
@@ -138,27 +161,29 @@ def frustum_candidates(
 ) -> dict:
     """Pose-seeded frustum compaction of a landmark bank, shared by every
     solve of a frame: the gated rows in bank order, padded to cand_cap,
-    plus `visible_bank`, the bank-level frustum mask."""
-    N = pts["pos"].shape[0]
+    plus `visible_bank`, the bank-level frustum mask.  pts: (..., N, ...)
+    rows, T_seed (..., 4, 4): one compaction per stream."""
+    N = pts["pos"].shape[-2]
     h, w = image_hw
     uv, z = project_points(T_seed, pts["pos"], K)
     gate = (
         pts["valid"]
         & (z > 0.05)
-        & (uv[:, 0] >= -margin) & (uv[:, 0] < w + margin)
-        & (uv[:, 1] >= -margin) & (uv[:, 1] < h + margin)
+        & (uv[..., 0] >= -margin) & (uv[..., 0] < w + margin)
+        & (uv[..., 1] >= -margin) & (uv[..., 1] < h + margin)
     )
-    cam_center = -T_seed[:3, :3].T @ T_seed[:3, 3]
+    R_t = T_seed[..., :3, :3].transpose(-1, -2)
+    cam_center = -(R_t @ T_seed[..., :3, 3:4])[..., 0]
     if use_scale_gate and "max_dist" in pts:
-        dist_w = torch.linalg.norm(pts["pos"] - cam_center[None], dim=-1)
+        po = pts["pos"] - cam_center[..., None, :]
+        dist_w = torch.linalg.norm(po, dim=-1)
         levels = predict_scale_level(dist_w, pts["max_dist"], scale_factor, n_levels)
         gate = gate & (dist_w >= pts["min_dist"] * 0.8) & (dist_w <= pts["max_dist"] * 1.2)
         if "normal" in pts:
-            po = pts["pos"] - cam_center[None]
             pn = po / torch.linalg.norm(po, dim=-1, keepdim=True).clamp(min=1e-9)
             gate = gate & (torch.sum(pn * pts["normal"], -1) > 0.5)
     else:
-        levels = pts.get("level", torch.zeros(N, dtype=torch.int32, device=gate.device))
+        levels = pts.get("level", torch.zeros_like(gate, dtype=torch.int32))
 
     CAND = min(cand_cap, N)
     if CAND < N:
@@ -167,19 +192,17 @@ def frustum_candidates(
             gate, N - torch.arange(N, dtype=torch.int32, device=gate.device), 0
         )
         cand_idx = torch.topk(score, CAND).indices
-        cand_valid = gate[cand_idx]
     else:
-        cand_idx = torch.arange(N, device=gate.device)
-        cand_valid = gate
+        cand_idx = torch.arange(N, device=gate.device).expand(gate.shape)
     out = {
         "bank_idx": cand_idx.to(torch.int32),
-        "valid": cand_valid,
-        "pos": pts["pos"][cand_idx],
-        "desc": pts["desc"][cand_idx],
-        "level": levels[cand_idx],
+        "valid": gate.gather(-1, cand_idx),
+        "pos": take_rows(pts["pos"], cand_idx),
+        "desc": take_rows(pts["desc"], cand_idx),
+        "level": levels.gather(-1, cand_idx),
         "visible_bank": gate,
     }
     if "rot_gate" in pts:
-        out["rot_gate"] = pts["rot_gate"][cand_idx]
-        out["angle"] = pts["angle"][cand_idx]
+        out["rot_gate"] = pts["rot_gate"].gather(-1, cand_idx)
+        out["angle"] = pts["angle"].gather(-1, cand_idx)
     return out

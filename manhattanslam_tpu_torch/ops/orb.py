@@ -7,9 +7,15 @@ tensors they run the plain PyTorch versions (``*_plain``); for CUDA
 tensors they launch ``csrc/ic_angle.cu`` / ``csrc/brief.cu`` (bound and
 design notes there) or raise.
 
-Descriptors are (N, 8) int32 tensors holding the bits of the reference's
-uint32 words (torch has no right shift for uint32 on the CPU); compare
-them through ``.view(torch.uint32)`` or numpy.
+Every function takes one image with its (N,) keypoints, or B streams'
+images (B, H, W) with (B, N) keypoints each (the reference's vmapped
+replay, whose batched Pallas twins ``_make_moments_kernel_batched`` and
+``_make_brief_kernel_batched`` grid over the batch): one kernel launch
+serves all B streams.
+
+Descriptors are (..., N, 8) int32 tensors holding the bits of the
+reference's uint32 words (torch has no right shift for uint32 on the
+CPU); compare them through ``.view(torch.uint32)`` or numpy.
 """
 
 from __future__ import annotations
@@ -82,20 +88,22 @@ def _topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 def select_grid_topk(
     score: torch.Tensor, n_out: int, cell: int = 32, k_per_cell: int = 8
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pick n_out keypoints: top-k_per_cell per cell, then global top-n_out.
+    """Pick n_out keypoints of each score map (..., H, W): top-k_per_cell
+    per cell, then global top-n_out.
 
-    Returns (xy (n_out, 2) float32, response (n_out,), valid (n_out,) bool).
-    Invalid slots have response 0.
+    Returns (xy (..., n_out, 2) float32, response (..., n_out), valid
+    (..., n_out) bool).  Invalid slots have response 0.
     """
-    h, w = score.shape
+    lead, (h, w) = score.shape[:-2], score.shape[-2:]
     ch, cw = -(-h // cell), -(-w // cell)
     sp = F.pad(score, (0, cw * cell - w, 0, ch * cell - h))
-    cells = sp.reshape(ch, cell, cw, cell).permute(0, 2, 1, 3).reshape(ch * cw, cell * cell)
+    cells = sp.reshape(*lead, ch, cell, cw, cell).transpose(-3, -2)
+    cells = cells.reshape(*lead, ch * cw, cell * cell)
     vals, idx = _topk_stable(cells, k_per_cell)
     cid = torch.arange(ch * cw, device=score.device)[:, None]
     ys = (cid // cw) * cell + idx // cell
     xs = (cid % cw) * cell + idx % cell
-    flat_v, flat_y, flat_x = vals.reshape(-1), ys.reshape(-1), xs.reshape(-1)
+    flat_v, flat_y, flat_x = (t.reshape(*lead, -1) for t in (vals, ys, xs))
     n_cand = flat_v.shape[0]
     if n_cand < n_out:
         padn = n_out - n_cand
@@ -103,53 +111,76 @@ def select_grid_topk(
         flat_y = F.pad(flat_y, (0, padn))
         flat_x = F.pad(flat_x, (0, padn))
     top_v, top_i = _topk_stable(flat_v, n_out)
-    xy = torch.stack([flat_x[top_i], flat_y[top_i]], -1).to(torch.float32)
-    return xy, top_v, top_v > 0.0
+    xy = torch.stack([flat_x.gather(-1, top_i), flat_y.gather(-1, top_i)], -1)
+    return xy.to(torch.float32), top_v, top_v > 0.0
+
+
+def gather_pixels(img: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """img (..., H, W) at flat pixel indices idx (..., *) of each image."""
+    lead = img.shape[:-2]
+    flat = img.reshape(*lead, -1)
+    return flat.gather(-1, idx.reshape(*lead, -1)).reshape(idx.shape)
+
+
+def _check_keypoint_batch(name: str, img: torch.Tensor, xy: torch.Tensor) -> tuple[int, int]:
+    """Kernel-side checks shared by the wrappers: an (H, W) or (B, H, W)
+    contiguous float32 image with contiguous (N, 2) or (B, N, 2) float32
+    keypoints on the same CUDA device.  Returns (B, N)."""
+    if img.device.type != "cuda" or xy.device != img.device:
+        raise ValueError(f"{name}: unsupported devices {img.device}, {xy.device}")
+    if img.dtype != torch.float32 or img.dim() not in (2, 3) or not img.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous (H, W) or (B, H, W) float32 image")
+    if (xy.dtype != torch.float32 or xy.dim() != img.dim() or xy.shape[-1] != 2
+            or xy.shape[:-2] != img.shape[:-2] or not xy.is_contiguous()):
+        raise ValueError(f"{name}: needs contiguous (N, 2) or (B, N, 2) float32 keypoints")
+    return (img.shape[0] if img.dim() == 3 else 1), xy.shape[-2]
 
 
 def ic_patch_index(xy: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(N, 31, 31) flat pixel indices of each keypoint's IC-angle patch.
-    Centres are truncated to integers and clipped so the disc stays inside
-    the image."""
+    """(..., N, 31, 31) flat pixel indices of each keypoint's IC-angle
+    patch.  Centres are truncated to integers and clipped so the disc
+    stays inside the image."""
     r = HALF_PATCH
-    x0 = torch.clamp(xy[:, 0].to(torch.int32), r, w - r - 1).long()
-    y0 = torch.clamp(xy[:, 1].to(torch.int32), r, h - r - 1).long()
+    x0 = torch.clamp(xy[..., 0].to(torch.int32), r, w - r - 1).long()
+    y0 = torch.clamp(xy[..., 1].to(torch.int32), r, h - r - 1).long()
     d = torch.arange(-r, r + 1, device=xy.device)
-    return (y0[:, None, None] + d[None, :, None]) * w + (x0[:, None, None] + d[None, None, :])
+    return (y0[..., None, None] + d[:, None]) * w + (x0[..., None, None] + d[None, :])
 
 
 def ic_angle_plain(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation per keypoint (radians): first moments
-    of the radius-15 circular patch (CIRC_MASK), atan2(m01, m10)."""
-    h, w = img.shape
-    patch = img.reshape(-1)[ic_patch_index(xy, h, w)]
+    of the radius-15 circular patch (CIRC_MASK), atan2(m01, m10).
+    img (..., H, W), xy (..., N, 2) -> (..., N).
+
+    The moments and atan2 are taken in float64 and the angle is rounded to
+    float32 (a float32 pixel times an offset below 16 is exact in float64):
+    the CPU's float32 atan2 rounds an element differently depending on
+    whether it falls in a vector lane or the scalar tail, so a float32
+    angle would depend on the batch shape."""
+    h, w = img.shape[-2:]
+    patch = gather_pixels(img, ic_patch_index(xy, h, w)).to(torch.float64)
     mask = device_constant("CIRC_MASK", img.device)
-    vals = torch.where(mask[None], patch, torch.zeros((), device=img.device))
-    df = torch.arange(-HALF_PATCH, HALF_PATCH + 1, device=img.device, dtype=torch.float32)
-    m01 = torch.sum(vals * df[None, :, None], dim=(1, 2))
-    m10 = torch.sum(vals * df[None, None, :], dim=(1, 2))
-    return torch.atan2(m01, m10)
+    vals = torch.where(mask, patch, torch.zeros((), dtype=torch.float64, device=img.device))
+    df = torch.arange(-HALF_PATCH, HALF_PATCH + 1, device=img.device, dtype=torch.float64)
+    m01 = torch.sum(vals * df[:, None], dim=(-2, -1))
+    m10 = torch.sum(vals * df[None, :], dim=(-2, -1))
+    return torch.atan2(m01, m10).to(torch.float32)
 
 
 def ic_angle(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """IC angle of (N,) keypoints xy (N, 2) on an (H, W) float32 image: the
-    plain version on the CPU, the CUDA kernel (counted) on the card."""
+    """IC angle of keypoints xy (N, 2) on an (H, W) float32 image, or of
+    (B, N, 2) on a (B, H, W) stack: the plain version on the CPU, one
+    launch of the CUDA kernel (counted) for all B streams on the card."""
     if img.device.type == "cpu":
         return ic_angle_plain(img, xy)
-    if img.device.type != "cuda" or xy.device != img.device:
-        raise ValueError(f"ic_angle: unsupported devices {img.device}, {xy.device}")
-    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
-        raise ValueError("ic_angle: needs a contiguous (H, W) float32 image")
-    if xy.dtype != torch.float32 or xy.dim() != 2 or xy.shape[1] != 2 or not xy.is_contiguous():
-        raise ValueError("ic_angle: needs contiguous (N, 2) float32 keypoints")
-    h, w = img.shape
+    b, n = _check_keypoint_batch("ic_angle", img, xy)
+    h, w = img.shape[-2:]
     if h < 2 * HALF_PATCH + 1 or w < 2 * HALF_PATCH + 1:
         raise ValueError("ic_angle: image smaller than the 31x31 patch")
-    n = xy.shape[0]
     umax = device_constant("UMAX", img.device)
-    out = torch.empty(n, dtype=torch.float32, device=img.device)
+    out = torch.empty(xy.shape[:-1], dtype=torch.float32, device=img.device)
     fn = kernel_build.kernel("ic_angle")
-    err = fn(img.data_ptr(), xy.data_ptr(), umax.data_ptr(), out.data_ptr(), n, h, w,
+    err = fn(img.data_ptr(), xy.data_ptr(), umax.data_ptr(), out.data_ptr(), b, n, h, w,
              torch.cuda.current_stream(img.device).cuda_stream)
     kernel_build.check_launch("ic_angle", err)
     ic_angle.launches += 1
@@ -160,8 +191,8 @@ ic_angle.launches = 0
 
 
 def _pack_words(bits: torch.Tensor) -> torch.Tensor:
-    """(N, 256) bool -> (N, 8) int32 words, bit j of word i = bit 32i+j."""
-    lanes = bits.reshape(-1, 8, 32).to(torch.int64)
+    """(..., 256) bool -> (..., 8) int32 words, bit j of word i = bit 32i+j."""
+    lanes = bits.reshape(*bits.shape[:-1], 8, 32).to(torch.int64)
     weights = torch.ones(32, dtype=torch.int64, device=bits.device) << torch.arange(
         32, device=bits.device
     )
@@ -172,57 +203,53 @@ def _pack_words(bits: torch.Tensor) -> torch.Tensor:
 def brief_sample_index(
     xy: torch.Tensor, cos_a: torch.Tensor, sin_a: torch.Tensor, h: int, w: int
 ) -> torch.Tensor:
-    """(N, 256, 2) flat pixel indices of the steered pattern: each point
-    (py, px) rotated by the keypoint angle, added to the keypoint, rounded
-    half to even and clipped to the image."""
+    """(..., N, 256, 2) flat pixel indices of the steered pattern: each
+    point (py, px) rotated by the keypoint angle, added to the keypoint,
+    rounded half to even and clipped to the image."""
     pat = device_constant("PATTERN", xy.device).to(torch.float32)  # (256, 2, 2)
     py, px = pat[..., 0], pat[..., 1]
-    rx = px[None] * cos_a[:, None, None] - py[None] * sin_a[:, None, None]
-    ry = px[None] * sin_a[:, None, None] + py[None] * cos_a[:, None, None]
-    sx = torch.clamp(torch.round(xy[:, 0, None, None] + rx), 0, w - 1).to(torch.int64)
-    sy = torch.clamp(torch.round(xy[:, 1, None, None] + ry), 0, h - 1).to(torch.int64)
+    c, s = cos_a[..., None, None], sin_a[..., None, None]
+    rx = px * c - py * s
+    ry = px * s + py * c
+    sx = torch.clamp(torch.round(xy[..., 0, None, None] + rx), 0, w - 1).to(torch.int64)
+    sy = torch.clamp(torch.round(xy[..., 1, None, None] + ry), 0, h - 1).to(torch.int64)
     return sy * w + sx
 
 
 def brief_descriptors_plain(
     blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor
 ) -> torch.Tensor:
-    """Steered BRIEF: (N, 8) int32 words, bit j of word i set when the
+    """Steered BRIEF: (..., N, 8) int32 words, bit j of word i set when the
     first sample of pair 32i+j is darker than the second (integer-rounded
-    blurred intensities)."""
-    h, w = blurred.shape
-    vals = blurred.reshape(-1)[brief_sample_index(xy, torch.cos(angle), torch.sin(angle), h, w)]
+    blurred intensities (..., H, W))."""
+    h, w = blurred.shape[-2:]
+    idx = brief_sample_index(xy, torch.cos(angle), torch.sin(angle), h, w)
+    vals = gather_pixels(blurred, idx)
     return _pack_words(vals[..., 0] < vals[..., 1])
 
 
 def brief_descriptors(
     blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor
 ) -> torch.Tensor:
-    """Steered BRIEF of (N,) keypoints: the plain version on the CPU, the
-    CUDA kernel (counted) on the card.  Both take cos/sin of the angle from
-    torch, so the two agree bit for bit on the same device."""
+    """Steered BRIEF of keypoints xy (N, 2) on an (H, W) image, or of
+    (B, N, 2) on a (B, H, W) stack: the plain version on the CPU, one
+    launch of the CUDA kernel (counted) for all B streams on the card.
+    Both take cos/sin of the angle from torch, so the two agree bit for
+    bit on the same device."""
     if blurred.device.type == "cpu":
         return brief_descriptors_plain(blurred, xy, angle)
+    b, n = _check_keypoint_batch("brief_descriptors", blurred, xy)
     dev = blurred.device
-    if dev.type != "cuda" or xy.device != dev or angle.device != dev:
-        raise ValueError(
-            f"brief_descriptors: unsupported devices {dev}, {xy.device}, {angle.device}"
-        )
-    if blurred.dtype != torch.float32 or blurred.dim() != 2 or not blurred.is_contiguous():
-        raise ValueError("brief_descriptors: needs a contiguous (H, W) float32 image")
-    if xy.dtype != torch.float32 or xy.dim() != 2 or xy.shape[1] != 2 or not xy.is_contiguous():
-        raise ValueError("brief_descriptors: needs contiguous (N, 2) float32 keypoints")
-    n = xy.shape[0]
-    if angle.dtype != torch.float32 or angle.shape != (n,):
-        raise ValueError("brief_descriptors: needs (N,) float32 angles")
-    h, w = blurred.shape
+    if angle.device != dev or angle.dtype != torch.float32 or angle.shape != xy.shape[:-1]:
+        raise ValueError("brief_descriptors: needs (N,) or (B, N) float32 angles")
+    h, w = blurred.shape[-2:]
     ca = torch.cos(angle).contiguous()
     sa = torch.sin(angle).contiguous()
     pattern = device_constant("PATTERN", dev)
-    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    out = torch.empty(xy.shape[:-1] + (8,), dtype=torch.int32, device=dev)
     fn = kernel_build.kernel("brief")
     err = fn(blurred.data_ptr(), xy.data_ptr(), ca.data_ptr(), sa.data_ptr(),
-             pattern.data_ptr(), out.data_ptr(), n, h, w,
+             pattern.data_ptr(), out.data_ptr(), b, n, h, w,
              torch.cuda.current_stream(dev).cuda_stream)
     kernel_build.check_launch("brief", err)
     brief_descriptors.launches += 1
@@ -233,7 +260,7 @@ brief_descriptors.launches = 0
 
 
 def unpack_descriptor_bits(desc: torch.Tensor) -> torch.Tensor:
-    """(N, 8) int32 words -> (N, 256) float32 in {0, 1}."""
+    """(..., 8) int32 words -> (..., 256) float32 in {0, 1}."""
     shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
     bits = (desc[..., None] >> shifts) & 1
-    return bits.reshape(desc.shape[0], 256).to(torch.float32)
+    return bits.reshape(desc.shape[:-1] + (256,)).to(torch.float32)

@@ -1,0 +1,60 @@
+"""Batched multi-sequence replay on one card (counterpart of
+manhattanslam_tpu/parallel/mesh.py ``build_throughput_step`` and
+``init_batched_carry``, BASELINE config 5).
+
+B independent sequence streams are tracked by one step against ONE shared
+map view (localization / replay mode).  The step is the fused frame body
+with a leading stream axis (``device_tracker.build_batched_body``), the
+counterpart of the reference's ``jax.vmap(body, in_axes=(0, 0, None))``:
+each op, and each of the three CUDA kernels per pyramid level, runs once
+for all B streams, so a step launches as many kernels at B = 8 as at
+B = 1.  The reference's multi-device entries (``make_mesh``,
+``build_batched_track_step``, ``sharded_hamming_argmin``) are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from manhattanslam_tpu_torch import resolve_device
+from manhattanslam_tpu_torch.config import SlamConfig
+from manhattanslam_tpu_torch.frontend import device_tracker as dt
+
+# what the step returns per stream (the reference's replay summary)
+_TRACK_KEYS = ("T", "tracked_ok", "n_inliers", "n_matches")
+RESULT_KEYS = _TRACK_KEYS + ("manhattan_found", "use_manhattan")
+
+
+def build_throughput_step(cfg: SlamConfig, batch: int, device=None):
+    """Returns step(gray8 (B,H,W) uint8, d16 (B,H,W) int32 in DEPTH_QUANT
+    units, carry (batched), view (shared)) -> (result, new_carry): each
+    result value has a leading axis of `batch` streams.  Planes are not
+    part of this slice, so ``manhattan_found`` and ``use_manhattan`` are
+    False, as in the reference with planes compiled out."""
+    device = resolve_device(device)
+    body = dt.build_batched_body(cfg, device)
+    hw = (cfg.camera.height, cfg.camera.width)
+
+    def step(gray8, d16, carry, view):
+        if gray8.shape != (batch,) + hw or d16.shape != (batch,) + hw:
+            raise ValueError(
+                f"throughput step: frames must be {(batch,) + hw}, got "
+                f"{tuple(gray8.shape)} and {tuple(d16.shape)}"
+            )
+        if gray8.device.type != device.type or d16.device.type != device.type:
+            raise ValueError(f"throughput step: frames must be on {device}")
+        result, new_carry = body(*dt.frame_to_float(gray8, d16), carry, view)
+        out = {k: result[k] for k in _TRACK_KEYS}
+        off = torch.zeros(batch, dtype=torch.bool, device=device)
+        out["manhattan_found"] = off
+        out["use_manhattan"] = off
+        return out, new_carry
+
+    return step
+
+
+def init_batched_carry(cfg: SlamConfig, batch: int, device=None) -> dict:
+    """The single-stream initial carry repeated for `batch` streams."""
+    one = dt.init_carry(cfg, resolve_device(device))
+    return {k: v.expand((batch,) + v.shape).contiguous() for k, v in one.items()}

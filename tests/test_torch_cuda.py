@@ -15,8 +15,12 @@ import torch
 
 from manhattanslam_tpu_torch.config import CameraConfig, CapacityConfig, OrbConfig, SlamConfig
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
+from manhattanslam_tpu_torch.frontend import device_tracker as dt
+from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
 from manhattanslam_tpu_torch.io import trajectory as traj_io
-from manhattanslam_tpu_torch.ops import fast, orb
+from manhattanslam_tpu_torch.ops import fast, image, orb
+from manhattanslam_tpu_torch.parallel import mesh
+from manhattanslam_tpu_torch.slam_map import SlamMap
 from manhattanslam_tpu_torch.system import System
 
 pytestmark = pytest.mark.cuda
@@ -79,6 +83,91 @@ def test_wrapper_checks_inputs(cuda):
         orb.ic_angle(torch.zeros((64, 64), device=cuda), torch.zeros((3, 3), device=cuda))
 
 
+def _small_cfg():
+    return SlamConfig(
+        camera=CameraConfig(fx=160.0, fy=160.0, cx=95.5, cy=71.5, k1=0, k2=0, p1=0, p2=0, k3=0,
+                            width=192, height=144, bf=12.0),
+        orb=OrbConfig(n_features=250),
+        caps=CapacityConfig(max_keypoints=256, max_lines=32, max_map_points=8192,
+                            max_map_lines=512, max_keyframes=64),
+    )
+
+
+def _batched_inputs(kind, b, hw, n, seed):
+    """A kernel's wrapper inputs for b streams, and its plain version."""
+    imgs = torch.stack([_image(*hw, seed=seed + i, integer=kind != "fast") for i in range(b)])
+    if kind == "fast":
+        return (imgs,), fast.fast_score_map, fast.fast_score_map_plain
+    xy = torch.stack([_keypoints(*hw, n, seed=seed + 10 + i) for i in range(b)])
+    if kind == "ic_angle":
+        return (imgs, xy), orb.ic_angle, orb.ic_angle_plain
+    angle = torch.from_numpy(
+        np.random.default_rng(seed).uniform(-math.pi, math.pi, (b, n)).astype(np.float32))
+    return (imgs, xy, angle), orb.brief_descriptors, orb.brief_descriptors_plain
+
+
+@pytest.mark.parametrize("kind", ["fast", "ic_angle", "brief"])
+@pytest.mark.parametrize("hw,n", [((480, 640), 217), ((134, 179), 60)])
+def test_batched_kernel_equals_plain_and_single_launches(cuda, kind, hw, n):
+    """One launch for 3 streams: equal to the plain version (IC angle within
+    1e-4 rad) and to 3 single launches."""
+    args, wrapper, plain = _batched_inputs(kind, 3, hw, n, seed=hw[0] + n)
+    args = tuple(a.to(cuda) for a in args)
+    before = wrapper.launches
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = plain(*args)
+    if kind == "ic_angle":
+        d = torch.remainder(out - ref + math.pi, 2 * math.pi) - math.pi
+        assert float(d.abs().max()) < 1e-4
+    else:
+        assert torch.equal(out, ref)
+    for i in range(3):
+        assert torch.equal(out[i], wrapper(*(a[i] for a in args))), i
+
+
+def test_replay_step_matches_single_stream_step(cuda):
+    """The batched replay on the card, 3 streams at different frame offsets
+    against the shared view of keyframe 0: each stream's pose within 1e-3 m
+    and 1e-3 rad of the single-stream step on the same frame and carry,
+    every stream tracked, each kernel launched once per pyramid level per
+    step whatever the number of streams."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=30, cam=cfg.camera)
+    first = [1, 4, 8]
+    frames = [seq.frame(i) for i in range(max(first) + 3)]
+    tracker = FastTracker(cfg, SlamMap(cfg), cuda)
+    tracker.track(*frames[0])
+    view = dt.upload_view(dt.build_host_view(cfg, tracker.map, tracker.ref_kf), cuda)
+    native = [dt.to_native(g, d) for _, g, d in frames]
+    shapes = image.pyramid_shapes(cfg.camera.height, cfg.camera.width, cfg.orb.n_levels,
+                                  cfg.orb.scale_factor)
+    per_step = sum(min(hw) >= 2 * orb.EDGE_THRESHOLD + 3 for hw in shapes)
+    step = mesh.build_throughput_step(cfg, len(first), cuda)
+    single = dt.build_frame_step(cfg, cuda)
+    carry = mesh.init_batched_carry(cfg, len(first), cuda)
+    T0 = np.stack([np.linalg.inv(seq.poses[f]) @ seq.poses[0] for f in first])
+    carry["T_last"] = torch.from_numpy(T0.astype(np.float32)).to(cuda)
+    for i in range(3):
+        g8 = torch.from_numpy(np.stack([native[f + i][0] for f in first])).to(cuda)
+        d16 = torch.from_numpy(np.stack([native[f + i][1].astype(np.int32) for f in first])).to(cuda)
+        before = fast.fast_score_map.launches, orb.ic_angle.launches, orb.brief_descriptors.launches
+        out, new_carry = step(g8, d16, carry, view)
+        after = fast.fast_score_map.launches, orb.ic_angle.launches, orb.brief_descriptors.launches
+        assert all(a - b == per_step for a, b in zip(after, before))
+        assert bool(out["tracked_ok"].all()), i
+        for s in range(len(first)):
+            res, _ = single(g8[s], d16[s], {k: v[s] for k, v in carry.items()}, view)
+            d = torch.linalg.inv(res["T"].double()) @ out["T"][s].double()
+            assert float(torch.linalg.norm(d[:3, 3])) < 1e-3, (i, s)
+            w = torch.stack([d[2, 1] - d[1, 2], d[0, 2] - d[2, 0], d[1, 0] - d[0, 1]])
+            angle = math.atan2(float(torch.linalg.norm(w)) / 2, (float(torch.trace(d[:3, :3])) - 1) / 2)
+            assert angle < 1e-3, (i, s)
+            assert bool(res["tracked_ok"]) == bool(out["tracked_ok"][s])
+        carry = new_carry
+
+
 def test_system_on_cuda_matches_cpu(cuda):
     """The 12 box-room frames of the CPU parity test (tests/test_torch_tracker.py)
     through the System on the card and on the CPU: all frames tracked, the
@@ -88,13 +177,7 @@ def test_system_on_cuda_matches_cpu(cuda):
     point seen from its creation distance, so one ulp of log moves a point
     to another level and window; on the CPU alone, taking that log in
     float64 instead of float32 moves frame 1 by 7.3 mm."""
-    cfg = SlamConfig(
-        camera=CameraConfig(fx=160.0, fy=160.0, cx=95.5, cy=71.5, k1=0, k2=0, p1=0, p2=0, k3=0,
-                            width=192, height=144, bf=12.0),
-        orb=OrbConfig(n_features=250),
-        caps=CapacityConfig(max_keypoints=256, max_lines=32, max_map_points=8192,
-                            max_map_lines=512, max_keyframes=64),
-    )
+    cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera)
     gpu, cpu = System(cfg), System(cfg, device="cpu")
     for i in range(12):

@@ -4,6 +4,7 @@
 Usage (one CUDA card, from the repository root):
 
     python3 tools/profile_torch_track.py [--frames 10] [--warmup 5] [--trace PATH]
+    python3 tools/profile_torch_track.py --replay 8 [--frames 10] [--warmup 2]
 
 Tracks the synthetic 640x480 box room at the TUM1 camera with the port's
 System, then profiles `--frames` frames with torch.profiler (CPU and CUDA
@@ -11,6 +12,11 @@ activity) and prints: wall ms per frame, device kernel ms per frame and the
 device's busy share, the host-device synchronizations per frame, and the
 operators and kernels that take the most time.  `--trace` also writes a
 Chrome trace.
+
+With `--replay B` it profiles the batched multi-sequence replay instead
+(parallel/mesh.py, as chip_smoke.py's replay phase drives it): B streams,
+stream s at frame offset s, against the shared view of keyframe 0; every
+"per frame" figure is then per batched step of B frames.
 """
 
 from __future__ import annotations
@@ -26,8 +32,14 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np  # noqa: E402
+
 from manhattanslam_tpu_torch.config import load_config  # noqa: E402
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence  # noqa: E402
+from manhattanslam_tpu_torch.frontend import device_tracker as dt  # noqa: E402
+from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker  # noqa: E402
+from manhattanslam_tpu_torch.parallel import mesh  # noqa: E402
+from manhattanslam_tpu_torch.slam_map import SlamMap  # noqa: E402
 from manhattanslam_tpu_torch.system import System  # noqa: E402
 
 
@@ -38,11 +50,34 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _replay_steps(cfg, seq, frames, batch: int, dev):
+    """One callable per replay step of `batch` streams (upload + step),
+    sharing a carry, as chip_smoke.py's replay phase drives them."""
+    tracker = FastTracker(cfg, SlamMap(cfg), dev)
+    tracker.track(*frames[0])
+    view = dt.upload_view(dt.build_host_view(cfg, tracker.map, tracker.ref_kf), dev)
+    native = [dt.to_native(g, d) for _, g, d in frames]
+    step = mesh.build_throughput_step(cfg, batch, dev)
+    state = {"carry": mesh.init_batched_carry(cfg, batch, dev)}
+    T0 = [np.linalg.inv(seq.poses[s]) @ seq.poses[0] for s in range(batch)]
+    state["carry"]["T_last"] = torch.from_numpy(np.stack(T0).astype(np.float32)).to(dev)
+
+    def run(i):
+        g8 = torch.from_numpy(np.stack([native[s + i][0] for s in range(batch)])).to(dev)
+        d16 = torch.from_numpy(
+            np.stack([native[s + i][1].astype(np.int32) for s in range(batch)])).to(dev)
+        _, state["carry"] = step(g8, d16, state["carry"], view)
+
+    return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--replay", type=int, default=0, metavar="B",
+                    help="profile the batched replay of B streams instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_track: needs a CUDA device", file=sys.stderr)
@@ -50,17 +85,31 @@ def main() -> int:
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(root, "configs", "TUM1.yaml"))
     n = args.warmup + args.frames
-    seq = SyntheticSequence(n_frames=n, cam=cfg.camera)
-    frames = [seq.frame(i) for i in range(n)]
-    system = System(cfg)
-    for ts, gray, depth in frames[: args.warmup]:
-        system.track(gray, depth, ts)
+    dev = torch.device("cuda")
+    if args.replay:
+        # a sequence long enough that no stream wraps around
+        seq = SyntheticSequence(n_frames=max(30, n + args.replay), cam=cfg.camera)
+        frames = [seq.frame(i) for i in range(n + args.replay)]
+        run = _replay_steps(cfg, seq, frames, args.replay, dev)
+        unit = f"step of {args.replay} frames"
+    else:
+        seq = SyntheticSequence(n_frames=n, cam=cfg.camera)
+        frames = [seq.frame(i) for i in range(n)]
+        system = System(cfg)
+
+        def run(i):
+            ts, gray, depth = frames[i]
+            system.track(gray, depth, ts)
+
+        unit = "frame"
+    for i in range(args.warmup):
+        run(i)
     torch.cuda.synchronize()
     wall = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for ts, gray, depth in frames[args.warmup :]:
+        for i in range(args.warmup, n):
             t = time.perf_counter()
-            system.track(gray, depth, ts)
+            run(i)
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t) * 1e3)
     f = args.frames
@@ -68,19 +117,20 @@ def main() -> int:
     dev_ms = sum(_device_us(e) for e in events) / 1e3 / f
     med = statistics.median(wall)
     print(f"device: {torch.cuda.get_device_name(0)}")
-    print(f"wall: median {med:.2f} ms/frame over {f} frames (min {min(wall):.2f}, max {max(wall):.2f})")
-    print(f"device kernels: {dev_ms:.3f} ms/frame, busy share {dev_ms / med:.3f}")
+    print(f"per {unit}:")
+    print(f"wall: median {med:.2f} ms over {f} (min {min(wall):.2f}, max {max(wall):.2f})")
+    print(f"device kernels: {dev_ms:.3f} ms, busy share {dev_ms / med:.3f}")
     syncs = {
         e.key: e.count / f for e in events
         if any(s in e.key for s in ("Synchronize", "cudaMemcpy", "cudaStreamWaitEvent"))
     }
-    print("host-device sync and copy calls per frame:", {k: round(v, 1) for k, v in syncs.items()})
+    print("host-device sync and copy calls:", {k: round(v, 1) for k, v in syncs.items()})
     n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    print(f"kernel launches per frame: {n_launch / f:.0f}")
-    print("top operators by self CPU time (ms/frame, calls/frame):")
+    print(f"kernel launches: {n_launch / f:.0f}")
+    print(f"top operators by self CPU time (ms and calls per {unit}):")
     for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:20]:
         print(f"  {e.self_cpu_time_total / 1e3 / f:8.3f}  {e.count / f:7.1f}  {e.key[:90]}")
-    print("top device kernels by time (ms/frame, calls/frame):")
+    print(f"top device kernels by time (ms and calls per {unit}):")
     for e in sorted(events, key=lambda e: -_device_us(e))[:20]:
         if _device_us(e) > 0:
             print(f"  {_device_us(e) / 1e3 / f:8.3f}  {e.count / f:7.1f}  {e.key[:90]}")
