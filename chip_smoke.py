@@ -57,14 +57,12 @@ from manhattanslam_tpu_torch.config import load_config
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
-from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
 from manhattanslam_tpu_torch.io import trajectory as traj_io
 from manhattanslam_tpu_torch.ops import fast as fast_ops
 from manhattanslam_tpu_torch.ops import image as image_ops
 from manhattanslam_tpu_torch.ops import kernel_build
 from manhattanslam_tpu_torch.ops import orb as orb_ops
-from manhattanslam_tpu_torch.parallel import mesh
-from manhattanslam_tpu_torch.slam_map import SlamMap
+from manhattanslam_tpu_torch.parallel import mesh, replay
 from manhattanslam_tpu_torch.system import System
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -367,23 +365,20 @@ def _pose_diff(A: np.ndarray, B: np.ndarray) -> tuple[float, float]:
     return float(np.linalg.norm(d[:3, 3])), _rot_angle(d[:3, :3])
 
 
-def _replay_run(cfg, dev, native, view, T0: np.ndarray, first: list[int]):
+def _replay_run(cfg, dev, seq, native, view, first: list[int]):
     """len(first) streams through build_throughput_step for REPLAY_STEPS
-    steps, stream s starting at frame first[s] at pose T0[s].  Returns
-    (per-step inputs, carries going in, outputs, ms per step, launches per
-    step); the host clock runs from the upload of a step's frames to the
-    synchronize after it."""
-    b = len(first)
-    step = mesh.build_throughput_step(cfg, b, dev)
-    carry = mesh.init_batched_carry(cfg, b, dev)
-    carry["T_last"] = torch.from_numpy(T0).to(dev)
+    steps, stream s starting at frame first[s].  Returns (per-step inputs,
+    carries going in, outputs, ms per step, launches per step); the host
+    clock runs from the upload of a step's frames to the synchronize
+    after it."""
+    step = mesh.build_throughput_step(cfg, len(first), dev)
+    carry = replay.start_carry(cfg, seq, first, dev)
     torch.cuda.synchronize()
     inputs, carries, outs, ms, launches = [], [], [], [], []
     for i in range(REPLAY_STEPS):
         before = read_launches()
         t = time.perf_counter()
-        g8 = torch.from_numpy(np.stack([native[f + i][0] for f in first])).to(dev)
-        d16 = torch.from_numpy(np.stack([native[f + i][1].astype(np.int32) for f in first])).to(dev)
+        g8, d16 = replay.step_frames(native, first, i, dev)
         carries.append(carry)
         out, carry = step(g8, d16, carry, view)
         torch.cuda.synchronize()
@@ -399,31 +394,25 @@ def phase_replay(cfg, dev, seq, frames, track_ms: float) -> dict:
     """The batched replay of BATCH streams against one shared view;
     returns the launch counts of its run."""
     t0 = time.perf_counter()
-    # the shared view: keyframe 0 of the tracker (its depth points with
-    # their distance bounds, and its keypoint matches for the ref-KF bank)
-    tracker = FastTracker(cfg, SlamMap(cfg), dev)
-    tracker.track(*frames[0])
-    view = dt.upload_view(dt.build_host_view(cfg, tracker.map, tracker.ref_kf), dev)
+    # the shared view of keyframe 0; stream s replays frames s, s+1, ...
+    # from the ground-truth pose of frame s (parallel/replay.py)
+    view, tracker = replay.shared_view(cfg, frames[0], dev)
     n_points = int(tracker.map.mp_valid.sum())
     native = [dt.to_native(g, d) for _, g, d in frames]
-    # stream s replays frames s, s+1, ... and starts at the ground-truth
-    # pose of frame s (an identity start would take its whole offset from
-    # frame 0 as its first velocity)
-    gt_cw = [np.linalg.inv(T) @ seq.poses[0] for T in seq.poses]
+    gt_cw = replay.start_poses(seq, range(N_FRAMES))
     first = list(range(BATCH))
-    T0 = np.stack([gt_cw[f] for f in first]).astype(np.float32)
     shapes = image_ops.pyramid_shapes(
         cfg.camera.height, cfg.camera.width, cfg.orb.n_levels, cfg.orb.scale_factor)
     per_step = sum(min(hw) >= 2 * orb_ops.EDGE_THRESHOLD + 3 for hw in shapes)
 
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    inputs, carries, outs, ms, step_launches = _replay_run(cfg, dev, native, view, T0, first)
+    inputs, carries, outs, ms, step_launches = _replay_run(cfg, dev, seq, native, view, first)
     launches = read_launches()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     med = statistics.median(ms[1:])
     # B = 1 through the same entry point, stream 0's frames
-    _, _, outs_1, ms_1, _ = _replay_run(cfg, dev, native, view, T0[:1], first[:1])
+    _, _, outs_1, ms_1, _ = _replay_run(cfg, dev, seq, native, view, first[:1])
     med_1 = statistics.median(ms_1[1:])
 
     # every stream tracked on every step, each kernel once per level per step

@@ -54,13 +54,11 @@ def pyramid_operators(
 
 
 def _resize(x: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
-    """ry @ img @ rx^T for every image of x (..., h, w).  A stack is
-    multiplied as two plain matrix products, the images side by side in
-    the row product ((h', h) @ (h, B*w)) and on top of each other in the
-    column product ((B*h', w) @ (w, w')), so each output element is the
-    dot product of the single-image path; at B = 1 they are its products."""
-    if x.dim() == 2:
-        return ry @ x @ rx.T
+    """ry @ img @ rx^T for every image of x (..., h, w), one image or a
+    stack, as two plain matrix products: the images side by side in the
+    row product ((h', h) @ (h, B*w)) and on top of each other in the
+    column product ((B*h', w) @ (w, w')), so each output element is a dot
+    product over one image's pixels, as it is for a single image."""
     lead, (h, w) = x.shape[:-2], x.shape[-2:]
     xb = x.reshape(-1, h, w)
     b, oh = xb.shape[0], ry.shape[0]

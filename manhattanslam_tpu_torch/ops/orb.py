@@ -104,7 +104,7 @@ def select_grid_topk(
     ys = (cid // cw) * cell + idx // cell
     xs = (cid % cw) * cell + idx % cell
     flat_v, flat_y, flat_x = (t.reshape(*lead, -1) for t in (vals, ys, xs))
-    n_cand = flat_v.shape[0]
+    n_cand = flat_v.shape[-1]
     if n_cand < n_out:
         padn = n_out - n_cand
         flat_v = F.pad(flat_v, (0, padn))

@@ -16,11 +16,9 @@ import torch
 from manhattanslam_tpu_torch.config import CameraConfig, CapacityConfig, OrbConfig, SlamConfig
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
-from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
 from manhattanslam_tpu_torch.io import trajectory as traj_io
 from manhattanslam_tpu_torch.ops import fast, image, orb
-from manhattanslam_tpu_torch.parallel import mesh
-from manhattanslam_tpu_torch.slam_map import SlamMap
+from manhattanslam_tpu_torch.parallel import mesh, replay
 from manhattanslam_tpu_torch.system import System
 
 pytestmark = pytest.mark.cuda
@@ -137,21 +135,16 @@ def test_replay_step_matches_single_stream_step(cuda):
     seq = SyntheticSequence(n_frames=30, cam=cfg.camera)
     first = [1, 4, 8]
     frames = [seq.frame(i) for i in range(max(first) + 3)]
-    tracker = FastTracker(cfg, SlamMap(cfg), cuda)
-    tracker.track(*frames[0])
-    view = dt.upload_view(dt.build_host_view(cfg, tracker.map, tracker.ref_kf), cuda)
+    view, _ = replay.shared_view(cfg, frames[0], cuda)
     native = [dt.to_native(g, d) for _, g, d in frames]
     shapes = image.pyramid_shapes(cfg.camera.height, cfg.camera.width, cfg.orb.n_levels,
                                   cfg.orb.scale_factor)
     per_step = sum(min(hw) >= 2 * orb.EDGE_THRESHOLD + 3 for hw in shapes)
     step = mesh.build_throughput_step(cfg, len(first), cuda)
     single = dt.build_frame_step(cfg, cuda)
-    carry = mesh.init_batched_carry(cfg, len(first), cuda)
-    T0 = np.stack([np.linalg.inv(seq.poses[f]) @ seq.poses[0] for f in first])
-    carry["T_last"] = torch.from_numpy(T0.astype(np.float32)).to(cuda)
+    carry = replay.start_carry(cfg, seq, first, cuda)
     for i in range(3):
-        g8 = torch.from_numpy(np.stack([native[f + i][0] for f in first])).to(cuda)
-        d16 = torch.from_numpy(np.stack([native[f + i][1].astype(np.int32) for f in first])).to(cuda)
+        g8, d16 = replay.step_frames(native, first, i, cuda)
         before = fast.fast_score_map.launches, orb.ic_angle.launches, orb.brief_descriptors.launches
         out, new_carry = step(g8, d16, carry, view)
         after = fast.fast_score_map.launches, orb.ic_angle.launches, orb.brief_descriptors.launches

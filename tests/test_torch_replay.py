@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from manhattanslam_tpu.frontend import device_tracker as jdt
+from manhattanslam_tpu.ops import orb as jorb
 from manhattanslam_tpu.ops.fast_pallas import fast_score_map_pallas
 from manhattanslam_tpu.ops.orb_pallas import brief_descriptors_pallas, ic_angle_pallas
 from manhattanslam_tpu.parallel import mesh as jmesh
@@ -32,7 +33,6 @@ from manhattanslam_tpu_torch import convert
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as pdt
 from manhattanslam_tpu_torch.frontend import tracking_ops as ptops
-from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
 from manhattanslam_tpu_torch.frontend.frame import backproject_keypoints, build_extractor
 from manhattanslam_tpu_torch.geometry import se3
 from manhattanslam_tpu_torch.ops import fast as pfast
@@ -40,7 +40,7 @@ from manhattanslam_tpu_torch.ops import image as pimage
 from manhattanslam_tpu_torch.ops import matching as pm
 from manhattanslam_tpu_torch.ops import orb as porb
 from manhattanslam_tpu_torch.parallel import mesh as pmesh
-from manhattanslam_tpu_torch.slam_map import SlamMap
+from manhattanslam_tpu_torch.parallel import replay as preplay
 from torch_parity import port_cfg, rot_angle
 
 CPU = torch.device("cpu")
@@ -124,6 +124,26 @@ def test_batched_wrappers_run_plain_versions_on_cpu():
     assert after == before
 
 
+def test_batched_grid_topk_with_more_streams_than_candidates():
+    """select_grid_topk on B streams pads along the candidate axis: with
+    more streams (40) than candidates per map (4 cells x 8 = 32) and
+    n_out above both, every stream still gets n_out slots, equal to its
+    single call and to the reference vmapped over the streams."""
+    rng = np.random.default_rng(11)
+    b, n_out = 40, 50
+    score = rng.integers(0, 4, (b, 40, 40)).astype(np.float32)  # many ties and zeros
+    xy, resp, valid = porb.select_grid_topk(torch.from_numpy(score), n_out)
+    assert xy.shape == (b, n_out, 2) and resp.shape == valid.shape == (b, n_out)
+    ref = jax.vmap(lambda s: jorb.select_grid_topk(s, n_out, cell=32, k_per_cell=8))(
+        jnp.asarray(score))
+    for got, want in zip((xy, resp, valid), ref):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for i in range(b):
+        single = porb.select_grid_topk(torch.from_numpy(score[i]), n_out)
+        for got, want in zip((xy, resp, valid), single):
+            assert torch.equal(got[i], want), f"stream {i}"
+
+
 # ------------------------------------------------------------- the slice
 @pytest.fixture(scope="module")
 def replay(small_cfg):
@@ -132,16 +152,15 @@ def replay(small_cfg):
     map holding the same tables, the frames, and each stream's first pose.
 
     bench.py's replay map (max distance 30 m for every point, no keyframe
-    matches) leaves both candidate paths without matches at this size and
-    tracks no stream, so the view comes from the tracker's keyframe rule.
-    Each stream starts at the ground-truth pose of its first frame (a
-    stream that starts at the identity would take its whole offset from
-    frame 0 as its first velocity)."""
+    matches) tracks no stream of the points-only body: from the initial
+    carry a stream has no velocity and the ref-KF descriptor candidate
+    has no matches, so no initial pose is accepted.  The view therefore
+    comes from the tracker's keyframe rule, and each stream starts at the
+    ground-truth pose of its first frame (parallel/replay.py)."""
     pcfg = port_cfg(small_cfg)
     seq = SyntheticSequence(n_frames=N_FRAMES, cam=pcfg.camera)
     frames = [seq.frame(i) for i in range(max(OFFSETS) + N_STEPS)]
-    tracker = FastTracker(pcfg, SlamMap(pcfg), CPU)
-    tracker.track(*frames[0])
+    view, tracker = preplay.shared_view(pcfg, frames[0], CPU)
     jmap = JaxSlamMap(small_cfg)
     for k in convert.MAP_TABLES:
         getattr(jmap, k)[...] = getattr(tracker.map, k)
@@ -149,16 +168,9 @@ def replay(small_cfg):
         setattr(jmap, k, getattr(tracker.map, k))
     kf = tracker.ref_kf
     view_ref = jdt.set_ref_kf(jdt.build_map_view(small_cfg, jmap), jmap, kf)
-    view = pdt.upload_view(pdt.build_host_view(pcfg, tracker.map, kf), CPU)
-    T0 = np.stack([np.linalg.inv(seq.poses[o]) @ seq.poses[0] for o in OFFSETS]).astype(np.float32)
+    T0 = preplay.start_poses(seq, OFFSETS)
     native = [pdt.to_native(g, d) for _, g, d in frames]
     return pcfg, frames, native, view_ref, view, T0, int(tracker.map.mp_valid.sum())
-
-
-def _port_frames(native, idx):
-    g8 = torch.from_numpy(np.stack([native[i][0] for i in idx]))
-    d16 = torch.from_numpy(np.stack([native[i][1].astype(np.int32) for i in idx]))
-    return g8, d16
 
 
 @pytest.fixture(scope="module")
@@ -185,7 +197,7 @@ def replay_runs(small_cfg, replay):
         packed = np.stack([jdt.pack_frame(frames[j][1], frames[j][2]) for j in idx])
         out_ref, carry_ref = ref_step(jnp.asarray(packed), carry_ref, view_ref)
         outs_ref.append(jax.device_get(out_ref))
-        out, carry = step(*_port_frames(native, idx), carry, view)
+        out, carry = step(*preplay.step_frames(native, OFFSETS, i, CPU), carry, view)
         outs.append({k: v.numpy() for k, v in out.items()})
     return outs_ref, outs
 
@@ -216,7 +228,7 @@ def test_batched_entry_at_b1_equals_single_body(replay):
     step_b = pmesh.build_throughput_step(pcfg, 1, CPU)
     step = pdt.build_frame_step(pcfg, CPU)
     for i in range(2):
-        g8, d16 = _port_frames(native, [OFFSETS[0] + i])
+        g8, d16 = preplay.step_frames(native, OFFSETS[:1], i, CPU)
         out_b, carry_b = step_b(g8, d16, carry_b, view)
         res, carry = step(g8[0], d16[0], carry, view)
         for k in ("T", "tracked_ok", "n_inliers", "n_matches"):
@@ -249,9 +261,10 @@ def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, bat
     n_active = sum(min(s) >= 2 * porb.EDGE_THRESHOLD + 3 for s in shapes)
     step = pmesh.build_throughput_step(pcfg, batch, CPU)
     carry = pmesh.init_batched_carry(pcfg, batch, CPU)
+    first = [OFFSETS[0] + s for s in range(batch)]
     n_steps = 2
     for i in range(n_steps):
-        step(*_port_frames(native, [OFFSETS[0] + i + s for s in range(batch)]), carry, view)
+        step(*preplay.step_frames(native, first, i, CPU), carry, view)
     assert calls == {n: n_steps * n_active for n in ("fast_score_map", "ic_angle", "brief_descriptors")}
 
 
@@ -285,7 +298,7 @@ def test_batched_matching_keeps_streams_apart(replay):
     Each stream's bank is the shared map plus a temporal block made of the
     OTHER stream's keypoints, so the streams' banks differ."""
     pcfg, _, native, _, view, T0, _ = replay
-    feats = build_extractor(pcfg, CPU)(*pdt.frame_to_float(*_port_frames(native, list(OFFSETS))))
+    feats = build_extractor(pcfg, CPU)(*pdt.frame_to_float(*preplay.step_frames(native, OFFSETS, 0, CPU)))
     B, n_kp = feats["desc"].shape[:2]
     n_map = view["mp_pos"].shape[0]
     T = torch.from_numpy(T0)

@@ -32,14 +32,10 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np  # noqa: E402
-
 from manhattanslam_tpu_torch.config import load_config  # noqa: E402
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence  # noqa: E402
 from manhattanslam_tpu_torch.frontend import device_tracker as dt  # noqa: E402
-from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker  # noqa: E402
-from manhattanslam_tpu_torch.parallel import mesh  # noqa: E402
-from manhattanslam_tpu_torch.slam_map import SlamMap  # noqa: E402
+from manhattanslam_tpu_torch.parallel import mesh, replay  # noqa: E402
 from manhattanslam_tpu_torch.system import System  # noqa: E402
 
 
@@ -52,20 +48,16 @@ def _device_us(evt) -> float:
 
 def _replay_steps(cfg, seq, frames, batch: int, dev):
     """One callable per replay step of `batch` streams (upload + step),
-    sharing a carry, as chip_smoke.py's replay phase drives them."""
-    tracker = FastTracker(cfg, SlamMap(cfg), dev)
-    tracker.track(*frames[0])
-    view = dt.upload_view(dt.build_host_view(cfg, tracker.map, tracker.ref_kf), dev)
+    sharing a carry: the traffic of chip_smoke.py's replay phase
+    (parallel/replay.py)."""
+    view, _ = replay.shared_view(cfg, frames[0], dev)
     native = [dt.to_native(g, d) for _, g, d in frames]
     step = mesh.build_throughput_step(cfg, batch, dev)
-    state = {"carry": mesh.init_batched_carry(cfg, batch, dev)}
-    T0 = [np.linalg.inv(seq.poses[s]) @ seq.poses[0] for s in range(batch)]
-    state["carry"]["T_last"] = torch.from_numpy(np.stack(T0).astype(np.float32)).to(dev)
+    first = list(range(batch))
+    state = {"carry": replay.start_carry(cfg, seq, first, dev)}
 
     def run(i):
-        g8 = torch.from_numpy(np.stack([native[s + i][0] for s in range(batch)])).to(dev)
-        d16 = torch.from_numpy(
-            np.stack([native[s + i][1].astype(np.int32) for s in range(batch)])).to(dev)
+        g8, d16 = replay.step_frames(native, first, i, dev)
         _, state["carry"] = step(g8, d16, state["carry"], view)
 
     return run
