@@ -10,27 +10,34 @@ Phases, each printing one line with its elapsed seconds:
              print the card's name and power limit from nvidia-smi.
 2. kernels - at the shapes of all 8 pyramid levels of a TUM1 frame (640x480,
              1000 ORB features), hold each kernel against its plain PyTorch
-             version on the card: FAST scores and BRIEF words equal, angles
-             within 1e-4 rad at the valid keypoints; time both (CUDA events
-             around 20 back-to-back calls, median of 5 such windows) and
-             compute each kernel's bound.  Then the same for the batched
-             launches that serve the replay: B = 8 different frames in one
-             launch per level, each also held equal to B single launches,
-             with the bound recomputed for the B frames; and the batched
-             pyramid and features against single-frame extraction (reported).
+             version on the card, launched as the extractor launches it
+             (FAST and IC angle once for all levels, BRIEF once per level):
+             FAST scores and BRIEF words equal, angles within 1e-4 rad at
+             the valid keypoints, and the all-level launches equal to one
+             launch per level.  Time each kernel twice: `ms`, CUDA events
+             around 20 back-to-back calls from Python (median of 5 such
+             windows), and `device_ms`, the same 20 launches captured once
+             in a CUDA graph and replayed between two events, which leaves
+             out the host's issue rate; compute each kernel's bound.  Then
+             the same for B = 8 different frames in one launch (FAST and IC
+             angle) or one per level (BRIEF), each also held equal to B
+             single-image launches, with the bound recomputed for the B
+             frames; and the batched pyramid and features against
+             single-frame extraction (reported).
 3. track   - the points-only System over 30 synthetic 640x480 frames at the
              TUM1 camera, with every kernel's launch count set to 0 first:
              all frames tracked, ATE against the renderer's ground truth
-             below 0.05 m, every kernel launched.
+             below 0.05 m, FAST and IC angle launched once per frame and
+             BRIEF once per level per frame.
 4. replay  - the batched multi-sequence replay (BASELINE config 5) through
              parallel/mesh.py: B = 8 streams of the same 640x480 box room,
              stream s at frame offset s, against the one shared map view of
              keyframe 0, for 12 steps (the first not timed), with the launch
-             counts set to 0 first: every stream tracked on every step, each
-             kernel launched once per level per step, each stream's pose
-             within 1e-3 m / 1e-3 rad of the single-stream step run on the
-             same frame and carry, and the poses' RMS error against ground
-             truth below 0.05 m.  Prints ms per step, aggregate frames/s at
+             counts set to 0 first: every stream tracked on every step,
+             FAST and IC angle launched once per step and BRIEF once per
+             level per step, each stream's pose within 1e-3 m / 1e-3 rad
+             of the single-stream step run on the same frame and carry,
+             and the poses' RMS error against ground truth below 0.05 m.  Prints ms per step, aggregate frames/s at
              B = 8 and B = 1 (the same entry point) and the peak memory.
 
 Any failure raises and the script exits nonzero.  It writes only into a
@@ -75,9 +82,10 @@ POSE_TOL_M = 1e-3  # replay stream vs the single-stream step, per step
 POSE_TOL_RAD = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
-# float ops per interior pixel of the FAST score: 16 differences,
-# 2 x 16 arcs x 8 mins, 2 x 16 maxes, 2 final maxes
-FAST_OPS_PER_PIXEL = 16 + 2 * 16 * 8 + 2 * 16 + 2
+# float ops per interior pixel of the FAST score as csrc/fast.cu does it:
+# per polarity 42 min (max) for the 16 arcs and 15 to reduce the
+# rotations; 2 subtractions of the centre; 2 final maxes
+FAST_OPS_PER_PIXEL = 2 * (42 + 15) + 2 + 2
 # per disc pixel: 2 multiplies + 2 adds (m01, m10)
 IC_OPS_PER_PIXEL = 4
 # per pattern point: 4 multiplies, 2 add/sub, 2 adds, 2 roundings,
@@ -85,19 +93,20 @@ IC_OPS_PER_PIXEL = 4
 BRIEF_OPS_PER_PAIR = 2 * 14 + 1
 
 # One row per TPU kernel (each function that reaches pl.pallas_call).  A
-# single kernel and its batched twin are served by one CUDA kernel (its
-# grid has a stream dimension); the single rows count launches on the
-# track phase's path, the batched rows on the replay's.
+# single kernel and its batched twin are served by one CUDA kernel (FAST
+# and IC angle: one launch for all pyramid levels and streams; BRIEF: one
+# per level for all streams); the single rows count launches on the track
+# phase's path, the batched rows on the replay's.
 _FAST = "manhattanslam_tpu_torch/csrc/fast.cu"
 _IC = "manhattanslam_tpu_torch/csrc/ic_angle.cu"
 _BRIEF = "manhattanslam_tpu_torch/csrc/brief.cu"
 KERNELS = {
     "fast_score": dict(
-        source=_FAST, path="track", wrapper=fast_ops.fast_score_map,
+        source=_FAST, path="track", wrapper=fast_ops.fast_score_levels,
         replaces="manhattanslam_tpu/ops/fast_pallas.py:33 (_fast_kernel, pallas_call :79)",
     ),
     "ic_angle": dict(
-        source=_IC, path="track", wrapper=orb_ops.ic_angle,
+        source=_IC, path="track", wrapper=orb_ops.ic_angle_levels,
         replaces="manhattanslam_tpu/ops/orb_pallas.py:235 (_make_moments_kernel, pallas_call :285)",
     ),
     "brief": dict(
@@ -105,11 +114,11 @@ KERNELS = {
         replaces="manhattanslam_tpu/ops/orb_pallas.py:66 (_make_brief_kernel, pallas_call :117)",
     ),
     "fast_score_batched": dict(
-        source=_FAST, path="replay", wrapper=fast_ops.fast_score_map,
+        source=_FAST, path="replay", wrapper=fast_ops.fast_score_levels,
         replaces="manhattanslam_tpu/ops/fast_pallas.py:92 (_fast_kernel_batched, pallas_call :127)",
     ),
     "ic_angle_batched": dict(
-        source=_IC, path="replay", wrapper=orb_ops.ic_angle,
+        source=_IC, path="replay", wrapper=orb_ops.ic_angle_levels,
         replaces="manhattanslam_tpu/ops/orb_pallas.py:299 "
         "(_make_moments_kernel_batched, pallas_call :341)",
     ),
@@ -119,7 +128,7 @@ KERNELS = {
         "(_make_brief_kernel_batched, pallas_call :176)",
     ),
 }
-WRAPPERS = (fast_ops.fast_score_map, orb_ops.ic_angle, orb_ops.brief_descriptors)
+WRAPPERS = (fast_ops.fast_score_levels, orb_ops.ic_angle_levels, orb_ops.brief_descriptors)
 
 
 def reset_launches() -> None:
@@ -129,6 +138,13 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def launches_per_frame(cfg) -> dict:
+    """Wrapper launches of one frame's (or one batched step's) extraction:
+    FAST and IC angle once for all levels, BRIEF once per active level."""
+    return {"fast_score_levels": 1, "ic_angle_levels": 1,
+            "brief_descriptors": len(frame.active_levels(cfg))}
 
 
 def log(msg: str) -> None:
@@ -148,6 +164,31 @@ def median_ms(fn, reps: int = 20, trials: int = 5) -> float:
         a.record()
         for _ in range(reps):
             fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(launch, reps: int = 20, trials: int = 5) -> float:
+    """Device time of one launch(stream) call: `reps` launches captured
+    once in a CUDA graph on a side stream, the graph replayed between two
+    CUDA events, divided by reps; the median of `trials` replays after one
+    warm-up replay.  Unlike median_ms it does not time the host's issue
+    rate (ctypes calls from Python)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            launch(side.cuda_stream)
+    graph.replay()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
@@ -174,87 +215,120 @@ def phase_build() -> str:
 
 
 def _measure_levels(cfg, dev, imgs: torch.Tensor, stats: dict, names: tuple) -> None:
-    """Every kernel at every pyramid level of the (B, H, W) stack `imgs`,
-    one launch per level for all B images, against its plain version (and,
-    for B > 1, against B single launches).  Adds each level's times, error
-    and bound terms to stats[name] for the (fast, ic_angle, brief) names."""
+    """Every kernel over the pyramid of the (B, H, W) stack `imgs`, as the
+    extractor launches it (FAST and IC angle once for all levels and all B
+    images, BRIEF once per level), against its plain version, against one
+    launch per level and, for B > 1, against B single-image launches.  Adds
+    the times, error and bound terms to stats[name] for the (fast,
+    ic_angle, brief) names."""
     b = imgs.shape[0]
     ops = image_ops.pyramid_operators(
         cfg.camera.height, cfg.camera.width, cfg.orb.n_levels, cfg.orb.scale_factor, dev
     )
-    levels = image_ops.build_pyramid(imgs, ops)
-    budgets = cfg.orb.features_per_level()
+    pyramid = image_ops.build_pyramid(imgs, ops)
+    active = frame.active_levels(cfg)
+    levels = [pyramid[li] for li in active]
+    budgets = [cfg.orb.features_per_level()[li] for li in active]
     stream = torch.cuda.current_stream(dev).cuda_stream
     fns = kernel_build.build()
     pattern = orb_ops.device_constant("PATTERN", dev)
-    umax = orb_ops.device_constant("UMAX", dev)
     circ = orb_ops.device_constant("CIRC_MASK", dev)
     st_fast, st_ic, st_brief = (stats[k] for k in names)
-    # offsets that keep the B images' pixel indices apart when counting
-    # the distinct pixels a launch reads
-    for li, level in enumerate(levels):
-        h, w = level.shape[-2:]
-        n = budgets[li]
-        img_off = (torch.arange(b, device=dev) * h * w)[:, None, None]
 
-        def same_as_singles(out, single):
-            return b == 1 or all(torch.equal(out[i], single(i)) for i in range(b))
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise RuntimeError(f"{what} (B = {b})")
 
-        # FAST: bit-identical scores
-        score = fast_ops.fast_score_map(level)
-        if not torch.equal(score, fast_ops.fast_score_map_plain(level)):
-            raise RuntimeError(f"{names[0]} level {li}: kernel != plain version")
-        if not same_as_singles(score, lambda i: fast_ops.fast_score_map(level[i])):
-            raise RuntimeError(f"{names[0]} level {li}: batched launch != single launches")
-        out = torch.empty_like(level)
-        st_fast["ms"] += median_ms(
-            lambda: fns["fast"](level.data_ptr(), out.data_ptr(), b, h, w, stream))
-        st_fast["plain_ms"] += median_ms(lambda: fast_ops.fast_score_map_plain(level))
+    # FAST: one launch for all levels, bit-identical with the plain version
+    # per level, with one launch per level and with B single-image launches
+    scores = fast_ops.fast_score_levels(levels)
+    plain = fast_ops.fast_score_levels_plain(levels)
+    for li, lv, sc, pl in zip(active, levels, scores, plain):
+        check(torch.equal(sc, pl), f"{names[0]} level {li}: kernel != plain version")
+        check(torch.equal(sc, fast_ops.fast_score_map(lv)),
+              f"{names[0]} level {li}: all-level launch != per-level launch")
+    for i in range(b if b > 1 else 0):
+        for li, sc, single in zip(active, scores, fast_ops.fast_score_levels([lv[i] for lv in levels])):
+            check(torch.equal(sc[i], single), f"{names[0]} level {li}: image {i} != single launch")
+    outs = kernel_build.level_views(
+        torch.empty(sum(lv.numel() for lv in levels), device=dev), [lv.shape for lv in levels])
+    fast_args = fast_ops.kernel_args(levels, outs)
+
+    def fast_launch(s):
+        fns["fast"](*fast_args, s)
+
+    st_fast["ms"] += median_ms(lambda: fast_launch(stream))
+    st_fast["device_ms"] += graph_ms(fast_launch)
+    st_fast["plain_ms"] += median_ms(lambda: fast_ops.fast_score_levels_plain(levels))
+    for lv in levels:
+        h, w = lv.shape[-2:]
         st_fast["bytes"] += 2 * b * h * w * 4
         st_fast["ops"] += FAST_OPS_PER_PIXEL * b * (h - 6) * (w - 6)
 
-        # the level's keypoints, as the extractor picks them
-        xy, _, valid = frame.level_keypoints(level, n, cfg)
+    # each level's keypoints, as the extractor picks them, level-major
+    kps = [frame.keypoints_from_score(sc, n, cfg) for sc, n in zip(scores, budgets)]
+    xy_flat = torch.cat([xy.reshape(-1, 2) for xy, _, _ in kps])
+    valid_flat = torch.cat([valid.reshape(-1) for _, _, valid in kps])
 
-        # IC angle: within ANGLE_TOL at the valid keypoints (wrapped)
-        ang = orb_ops.ic_angle(level, xy)
-        ang_p = orb_ops.ic_angle_plain(level, xy)
-        dang = torch.remainder(ang - ang_p + math.pi, 2 * math.pi) - math.pi
-        err = float(dang[valid].abs().max()) if bool(valid.any()) else 0.0
-        if not err <= ANGLE_TOL:
-            raise RuntimeError(f"{names[1]} level {li}: max error {err} rad > {ANGLE_TOL}")
-        if not same_as_singles(ang, lambda i: orb_ops.ic_angle(level[i], xy[i])):
-            raise RuntimeError(f"{names[1]} level {li}: batched launch != single launches")
-        st_ic["max_abs_err"] = max(st_ic["max_abs_err"], err)
-        ang_out = torch.empty((b, n), dtype=torch.float32, device=dev)
-        st_ic["ms"] += median_ms(lambda: fns["ic_angle"](
-            level.data_ptr(), xy.data_ptr(), umax.data_ptr(), ang_out.data_ptr(), b, n, h, w,
-            stream))
-        st_ic["plain_ms"] += median_ms(lambda: orb_ops.ic_angle_plain(level, xy))
+    # IC angle: one launch for all levels, within ANGLE_TOL of the plain
+    # version at the valid keypoints (wrapped), and bitwise equal to one
+    # launch per level and to B single-image launches
+    ang = orb_ops.ic_angle_levels(levels, xy_flat, budgets)
+    dang = orb_ops.ic_angle_levels_plain(levels, xy_flat, budgets) - ang
+    dang = torch.remainder(dang + math.pi, 2 * math.pi) - math.pi
+    err = float(dang[valid_flat].abs().max()) if bool(valid_flat.any()) else 0.0
+    check(err <= ANGLE_TOL, f"{names[1]}: max error {err} rad > {ANGLE_TOL}")
+    st_ic["max_abs_err"] = max(st_ic["max_abs_err"], err)
+    angles = orb_ops.level_keypoint_views(ang, budgets, (b,))
+    for li, lv, (xy, _, _), a in zip(active, levels, kps, angles):
+        check(torch.equal(a, orb_ops.ic_angle(lv, xy)),
+              f"{names[1]} level {li}: all-level launch != per-level launch")
+    for i in range(b if b > 1 else 0):
+        single = orb_ops.ic_angle_levels(
+            [lv[i] for lv in levels], torch.cat([xy[i] for xy, _, _ in kps]), budgets)
+        check(torch.equal(torch.cat([a[i] for a in angles]), single),
+              f"{names[1]}: image {i} != single-image launch")
+    ang_out = torch.empty_like(ang)
+    ic_args = orb_ops.kernel_args(levels, budgets)
+
+    def ic_launch(s):
+        fns["ic_angle"](*ic_args, xy_flat.data_ptr(), ang_out.data_ptr(), s)
+
+    st_ic["ms"] += median_ms(lambda: ic_launch(stream))
+    st_ic["device_ms"] += graph_ms(ic_launch)
+    st_ic["plain_ms"] += median_ms(lambda: orb_ops.ic_angle_levels_plain(levels, xy_flat, budgets))
+    st_ic["bytes"] += 4 * len(orb_ops.IC_ROW_EXTENT) + 8 * xy_flat.shape[0] + 4 * ang.numel()
+    st_ic["ops"] += IC_OPS_PER_PIXEL * float(circ.sum()) * ang.numel()
+
+    for li, lv, (xy, _, _), a in zip(active, levels, kps, angles):
+        h, w = lv.shape[-2:]
+        n = xy.shape[-2]
+        # offsets that keep the B images' pixel indices apart when counting
+        # the distinct pixels a launch reads
+        img_off = (torch.arange(b, device=dev) * h * w)[:, None, None]
         disc_px = orb_ops.ic_patch_index(xy, h, w).reshape(b, n, -1)[..., circ.reshape(-1)]
-        n_uniq = int(torch.unique(disc_px + img_off).numel())
-        st_ic["bytes"] += 4 * n_uniq + 8 * b * n + 4 * umax.numel() + 4 * b * n
-        st_ic["ops"] += IC_OPS_PER_PIXEL * float(circ.sum()) * b * n
+        st_ic["bytes"] += 4 * int(torch.unique(disc_px + img_off).numel())
 
-        # BRIEF: bit-exact words from the kernel's angles
-        blurred = torch.round(image_ops.gaussian_blur(level, 7, 2.0))
-        desc = orb_ops.brief_descriptors(blurred, xy, ang)
-        desc_p = orb_ops.brief_descriptors_plain(blurred, xy, ang)
-        if not torch.equal(desc, desc_p):
-            bad = int((desc != desc_p).any(dim=-1).sum())
-            raise RuntimeError(
-                f"{names[2]} level {li}: {bad} keypoints differ from the plain version")
-        if not same_as_singles(
-            desc, lambda i: orb_ops.brief_descriptors(blurred[i], xy[i], ang[i])
-        ):
-            raise RuntimeError(f"{names[2]} level {li}: batched launch != single launches")
-        ca, sa = torch.cos(ang), torch.sin(ang)
+        # BRIEF, one launch per level: bit-exact words from the kernel's angles
+        blurred = torch.round(image_ops.gaussian_blur(lv, 7, 2.0))
+        desc = orb_ops.brief_descriptors(blurred, xy, a)
+        desc_p = orb_ops.brief_descriptors_plain(blurred, xy, a)
+        bad = int((desc != desc_p).any(dim=-1).sum())
+        check(bad == 0, f"{names[2]} level {li}: {bad} keypoints differ from the plain version")
+        for i in range(b if b > 1 else 0):
+            check(torch.equal(desc[i], orb_ops.brief_descriptors(blurred[i], xy[i], a[i])),
+                  f"{names[2]} level {li}: image {i} != single launch")
+        ca, sa = torch.cos(a), torch.sin(a)
         desc_out = torch.empty((b, n, 8), dtype=torch.int32, device=dev)
-        st_brief["ms"] += median_ms(lambda: fns["brief"](
-            blurred.data_ptr(), xy.data_ptr(), ca.data_ptr(), sa.data_ptr(),
-            pattern.data_ptr(), desc_out.data_ptr(), b, n, h, w, stream))
+
+        def brief_launch(s):
+            fns["brief"](blurred.data_ptr(), xy.data_ptr(), ca.data_ptr(), sa.data_ptr(),
+                         pattern.data_ptr(), desc_out.data_ptr(), b, n, h, w, s)
+
+        st_brief["ms"] += median_ms(lambda: brief_launch(stream))
+        st_brief["device_ms"] += graph_ms(brief_launch)
         st_brief["plain_ms"] += median_ms(
-            lambda: orb_ops.brief_descriptors_plain(blurred, xy, ang))
+            lambda: orb_ops.brief_descriptors_plain(blurred, xy, a))
         sample_px = orb_ops.brief_sample_index(xy, ca, sa, h, w).reshape(b, n, -1)
         n_uniq = int(torch.unique(sample_px + img_off).numel())
         st_brief["bytes"] += (
@@ -297,19 +371,23 @@ def phase_kernels(cfg, dev, frames) -> dict:
     gray = torch.from_numpy(np.stack([g for g, _ in native])).to(dev).to(torch.float32)
     depth = torch.from_numpy(np.stack([d.astype(np.int32) for _, d in native])).to(dev)
     depth = depth.to(torch.float32) * float(np.float32(1.0 / dt.DEPTH_QUANT))
-    stats = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, ops=0.0)
+    stats = {k: dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, ops=0.0)
              for k in KERNELS}
     _measure_levels(cfg, dev, gray[:1].contiguous(), stats, ("fast_score", "ic_angle", "brief"))
     _measure_levels(cfg, dev, gray, stats,
                     ("fast_score_batched", "ic_angle_batched", "brief_batched"))
+    per_frame = launches_per_frame(cfg)
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(st.pop("bytes"), st.pop("ops"))
         log(f"kernels {name}: max_abs_err {st['max_abs_err']:.3g}, "
             f"{st['ms']:.4f} ms per {'step' if 'batched' in name else 'frame'} "
-            f"({cfg.orb.n_levels} launches), plain {st['plain_ms']:.4f} ms, "
+            f"(device {st['device_ms']:.4f} ms) "
+            f"({per_frame[KERNELS[name]['wrapper'].__name__]} launches), "
+            f"plain {st['plain_ms']:.4f} ms, "
             f"bound {st['bound_ms']:.6f} ms ({st['bound_by']})")
     _compare_extraction(cfg, dev, gray, depth)
-    log(f"phase kernels: {cfg.orb.n_levels} levels, single and {BATCH}-frame launches, all "
+    log(f"phase kernels: {len(frame.active_levels(cfg))} levels, single and {BATCH}-frame "
+        f"launches, all "
         f"kernels agree with their plain versions, {time.perf_counter() - t0:.1f} s")
     return stats
 
@@ -349,6 +427,9 @@ def phase_track(cfg, seq, frames, tmp: str) -> tuple[dict, float]:
     for name, n in launches.items():
         if n <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the main path")
+        if n != N_FRAMES * launches_per_frame(cfg)[name]:
+            raise RuntimeError(f"kernel {name} launched {n} times in {N_FRAMES} frames, not "
+                               f"{launches_per_frame(cfg)[name]} per frame")
     log(f"phase track: {time.perf_counter() - t0:.1f} s")
     return launches, med
 
@@ -401,9 +482,7 @@ def phase_replay(cfg, dev, seq, frames, track_ms: float) -> dict:
     native = [dt.to_native(g, d) for _, g, d in frames]
     gt_cw = replay.start_poses(seq, range(N_FRAMES))
     first = list(range(BATCH))
-    shapes = image_ops.pyramid_shapes(
-        cfg.camera.height, cfg.camera.width, cfg.orb.n_levels, cfg.orb.scale_factor)
-    per_step = sum(min(hw) >= 2 * orb_ops.EDGE_THRESHOLD + 3 for hw in shapes)
+    per_step = launches_per_frame(cfg)
 
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
@@ -415,14 +494,15 @@ def phase_replay(cfg, dev, seq, frames, track_ms: float) -> dict:
     _, _, outs_1, ms_1, _ = _replay_run(cfg, dev, seq, native, view, first[:1])
     med_1 = statistics.median(ms_1[1:])
 
-    # every stream tracked on every step, each kernel once per level per step
+    # every stream tracked on every step; FAST and IC angle launched once
+    # per step, BRIEF once per level per step
     for i, out in enumerate(outs):
         if not out["tracked_ok"].all():
             raise RuntimeError(f"replay step {i}: streams {np.nonzero(~out['tracked_ok'])[0]} lost")
         for name, n in step_launches[i].items():
-            if n != per_step:
+            if n != per_step[name]:
                 raise RuntimeError(
-                    f"replay step {i}: {name} launched {n} times, not once per level ({per_step})")
+                    f"replay step {i}: {name} launched {n} times, not {per_step[name]}")
     # each stream against the single-stream step on the same frame and carry
     single = dt.build_frame_step(cfg, dev)
     max_dt = max_dr = 0.0
@@ -477,7 +557,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
             "launches": launches[k["path"]][k["wrapper"].__name__],
-            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"], "device_ms": st["device_ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,
         })

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -29,14 +30,18 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
+_PI = ctypes.POINTER(ctypes.c_int)  # host array of ints
 # C signature of each kernel source's entry point: (symbol, argtypes).
-# Every kernel takes a leading stream count B (its images are (B, h, w)),
-# then the stream handle last.
+# FAST and IC angle take a level table (host arrays, one entry per
+# pyramid level, at most 8 levels) and serve every level and stream in one
+# launch; BRIEF takes a leading stream count B (its images are (B, h, w)).
+# The stream handle comes last.
 SIGNATURES = {
-    # img, out, B, h, w, stream
-    "fast": ("mslam_fast_score", (_P, _P, _I, _I, _I, _P)),
-    # img, xy, umax, angle, B, n, h, w, stream
-    "ic_angle": ("mslam_ic_angle", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # img[], out[], h[], w[], tiles_x[], tiles_img[], tile_start[], levels, stream
+    "fast": ("mslam_fast_score_levels", (_PP, _PP, _PI, _PI, _PI, _PI, _PI, _I, _P)),
+    # img[], h[], w[], n[], kp_start[], vmax[], levels, xy, angle, stream
+    "ic_angle": ("mslam_ic_angle_levels", (_PP, _PI, _PI, _PI, _PI, _PI, _I, _P, _P, _P)),
     # img, xy, cos, sin, pattern, desc, B, n, h, w, stream
     "brief": ("mslam_brief", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
 }
@@ -101,6 +106,30 @@ def kernel(name: str) -> ctypes._CFuncPtr:
     """The C entry point of csrc/<name>.cu, built on first use."""
     fn = _loaded.get(name)
     return fn if fn is not None else build((name,))[name]
+
+
+MAX_LEVELS = 8  # pyramid levels one FAST or IC-angle launch takes (csrc kMaxLevels)
+
+
+def prefix(sizes) -> list[int]:
+    """[0, s0, s0 + s1, ...]: the start offsets of consecutive blocks (the
+    level tables' prefixes)."""
+    out = [0]
+    for n in sizes:
+        out.append(out[-1] + int(n))
+    return out
+
+
+def level_views(flat, shapes) -> list:
+    """Contiguous views of consecutive blocks of the 1-D buffer `flat`, one
+    per shape (a level-major layout)."""
+    starts = prefix(math.prod(s) for s in shapes)
+    return [flat[a:b].view(s) for a, b, s in zip(starts, starts[1:], shapes)]
+
+
+def c_array(ctype, values):
+    """A ctypes array of `values`, for a host-array argument."""
+    return (ctype * len(values))(*values)
 
 
 def check_launch(name: str, err: int) -> None:

@@ -2,10 +2,12 @@
 (counterpart of manhattanslam_tpu/ops/orb.py and, for the angle and the
 descriptor, of the Pallas kernels in ops/orb_pallas.py).
 
-``ic_angle`` and ``brief_descriptors`` are kernel wrappers: for CPU
-tensors they run the plain PyTorch versions (``*_plain``); for CUDA
+``ic_angle_levels`` and ``brief_descriptors`` are kernel wrappers: for
+CPU tensors they run the plain PyTorch versions (``*_plain``); for CUDA
 tensors they launch ``csrc/ic_angle.cu`` / ``csrc/brief.cu`` (bound and
-design notes there) or raise.
+design notes there) or raise.  ``ic_angle_levels`` takes every pyramid
+level's keypoints in one level-major buffer and makes one launch for all
+of them; ``ic_angle`` is its one-level form.
 
 Every function takes one image with its (N,) keypoints, or B streams'
 images (B, H, W) with (B, N) keypoints each (the reference's vmapped
@@ -20,7 +22,9 @@ CPU); compare them through ``.view(torch.uint32)`` or numpy.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -56,6 +60,12 @@ def _circular_umax(radius: int = HALF_PATCH) -> np.ndarray:
 
 
 UMAX = _circular_umax()
+# disc rows of column |dx|: |dy| <= IC_ROW_EXTENT[|dx|] (UMAX is
+# non-increasing, so they are one contiguous range)
+IC_ROW_EXTENT = np.array(
+    [max(v for v in range(HALF_PATCH + 1) if UMAX[v] >= a) for a in range(HALF_PATCH + 1)],
+    dtype=np.int32,
+)
 
 
 def _patch_mask(radius: int = HALF_PATCH) -> np.ndarray:
@@ -73,8 +83,8 @@ CIRC_MASK = _patch_mask()
 
 @functools.lru_cache(maxsize=None)
 def device_constant(name: str, device: torch.device) -> torch.Tensor:
-    """PATTERN / UMAX / CIRC_MASK as a tensor on `device`, uploaded once."""
-    table = {"PATTERN": PATTERN, "UMAX": UMAX, "CIRC_MASK": CIRC_MASK}[name]
+    """PATTERN / CIRC_MASK as a tensor on `device`, uploaded once."""
+    table = {"PATTERN": PATTERN, "CIRC_MASK": CIRC_MASK}[name]
     return torch.from_numpy(table).to(device)
 
 
@@ -167,27 +177,89 @@ def ic_angle_plain(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return torch.atan2(m01, m10).to(torch.float32)
 
 
-def ic_angle(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """IC angle of keypoints xy (N, 2) on an (H, W) float32 image, or of
-    (B, N, 2) on a (B, H, W) stack: the plain version on the CPU, one
-    launch of the CUDA kernel (counted) for all B streams on the card."""
-    if img.device.type == "cpu":
-        return ic_angle_plain(img, xy)
-    b, n = _check_keypoint_batch("ic_angle", img, xy)
-    h, w = img.shape[-2:]
-    if h < 2 * HALF_PATCH + 1 or w < 2 * HALF_PATCH + 1:
-        raise ValueError("ic_angle: image smaller than the 31x31 patch")
-    umax = device_constant("UMAX", img.device)
-    out = torch.empty(xy.shape[:-1], dtype=torch.float32, device=img.device)
-    fn = kernel_build.kernel("ic_angle")
-    err = fn(img.data_ptr(), xy.data_ptr(), umax.data_ptr(), out.data_ptr(), b, n, h, w,
-             torch.cuda.current_stream(img.device).cuda_stream)
-    kernel_build.check_launch("ic_angle", err)
-    ic_angle.launches += 1
+def keypoint_starts(budgets, batch: int) -> list[int]:
+    """Start of each level's keypoints in the level-major layout
+    [level][B][n_l] (and the total, last): the prefix of batch * n_l."""
+    return kernel_build.prefix(batch * n for n in budgets)
+
+
+def level_keypoint_views(flat: torch.Tensor, budgets, lead) -> list[torch.Tensor]:
+    """Each level's (*lead, n_l, ...) contiguous view of a level-major
+    keypoint buffer flat (sum B * n_l, ...)."""
+    return kernel_build.level_views(
+        flat.reshape(-1), [tuple(lead) + (n,) + flat.shape[1:] for n in budgets])
+
+
+def ic_angle_levels_plain(levels, xy_flat, budgets) -> torch.Tensor:
+    """The plain version per level, filling the same level-major layout."""
+    lead = levels[0].shape[:-2]
+    out = torch.empty(xy_flat.shape[:1], dtype=torch.float32, device=xy_flat.device)
+    for ang, lv, xy in zip(level_keypoint_views(out, budgets, lead), levels,
+                           level_keypoint_views(xy_flat, budgets, lead)):
+        ang.copy_(ic_angle_plain(lv, xy))
     return out
 
 
-ic_angle.launches = 0
+def kernel_args(levels, budgets) -> tuple:
+    """The level-table arguments of one csrc/ic_angle.cu launch (host
+    arrays), to be followed by xy, angle and the stream."""
+    shapes = [tuple(lv.shape[-2:]) for lv in levels]
+    return (
+        kernel_build.c_array(ctypes.c_void_p, [lv.data_ptr() for lv in levels]),
+        kernel_build.c_array(ctypes.c_int, [h for h, _ in shapes]),
+        kernel_build.c_array(ctypes.c_int, [w for _, w in shapes]),
+        kernel_build.c_array(ctypes.c_int, list(budgets)),
+        kernel_build.c_array(ctypes.c_int,
+                             keypoint_starts(budgets, math.prod(levels[0].shape[:-2]))),
+        kernel_build.c_array(ctypes.c_int, IC_ROW_EXTENT.tolist()),
+        len(levels),
+    )
+
+
+def ic_angle_levels(levels: list[torch.Tensor], xy_flat: torch.Tensor, budgets) -> torch.Tensor:
+    """IC angles of every level's keypoints: levels[l] is an (H_l, W_l) or
+    (B, H_l, W_l) float32 image (one leading shape for all), budgets[l]
+    its keypoints per image, and xy_flat the (sum_l B * n_l, 2) float32
+    keypoints in the level-major layout [level][B][n_l].  Returns the
+    (sum_l B * n_l,) angles in the same layout, so each level's angles are
+    a contiguous (B, n_l) view.  The plain version on the CPU; on the card
+    one launch of the CUDA kernel (counted) for every level and stream."""
+    if levels[0].device.type == "cpu":
+        return ic_angle_levels_plain(levels, xy_flat, budgets)
+    dev, lead = levels[0].device, levels[0].shape[:-2]
+    if dev.type != "cuda":
+        raise ValueError(f"ic_angle_levels: unsupported device {dev}")
+    if not 1 <= len(levels) == len(budgets) <= kernel_build.MAX_LEVELS:
+        raise ValueError(f"ic_angle_levels: takes 1 to {kernel_build.MAX_LEVELS} levels, "
+                         "each with its budget")
+    for lv in levels:
+        if (lv.device != dev or lv.dtype != torch.float32 or lv.dim() not in (2, 3)
+                or lv.shape[:-2] != lead or not lv.is_contiguous()):
+            raise ValueError("ic_angle_levels: needs contiguous (H, W) or (B, H, W) float32 "
+                             "images with one leading shape on one CUDA device")
+        if min(lv.shape[-2:]) < 2 * HALF_PATCH + 1:
+            raise ValueError("ic_angle_levels: image smaller than the 31x31 patch")
+    if (xy_flat.device != dev or xy_flat.dtype != torch.float32 or not xy_flat.is_contiguous()
+            or tuple(xy_flat.shape) != (keypoint_starts(budgets, math.prod(lead))[-1], 2)):
+        raise ValueError("ic_angle_levels: needs contiguous (sum B * n_l, 2) float32 keypoints")
+    out = torch.empty(xy_flat.shape[:1], dtype=torch.float32, device=dev)
+    fn = kernel_build.kernel("ic_angle")
+    err = fn(*kernel_args(levels, budgets), xy_flat.data_ptr(), out.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kernel_build.check_launch("ic_angle", err)
+    ic_angle_levels.launches += 1
+    return out
+
+
+ic_angle_levels.launches = 0
+
+
+def ic_angle(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """IC angle of keypoints xy (N, 2) on an (H, W) float32 image, or of
+    (B, N, 2) on a (B, H, W) stack (``ic_angle_levels`` of one level)."""
+    if img.device.type != "cpu":
+        _check_keypoint_batch("ic_angle", img, xy)
+    return ic_angle_levels([img], xy.reshape(-1, 2), [xy.shape[-2]]).view(xy.shape[:-1])
 
 
 def _pack_words(bits: torch.Tensor) -> torch.Tensor:

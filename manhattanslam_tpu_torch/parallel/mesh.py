@@ -5,10 +5,9 @@ manhattanslam_tpu/parallel/mesh.py ``build_throughput_step`` and
 B independent sequence streams are tracked by one step against ONE shared
 map view (localization / replay mode).  The step is the fused frame body
 with a leading stream axis (``device_tracker.build_batched_body``), the
-counterpart of the reference's ``jax.vmap(body, in_axes=(0, 0, None))``:
-each op, and each of the three CUDA kernels per pyramid level, runs once
-for all B streams, so a step launches as many kernels at B = 8 as at
-B = 1.  The reference's multi-device entries (``make_mesh``,
+counterpart of the reference's ``jax.vmap(body, in_axes=(0, 0, None))``
+of its points-only part: each op and each CUDA kernel launch serves all
+B streams, so a step launches as many kernels at B = 8 as at B = 1.  The reference's multi-device entries (``make_mesh``,
 ``build_batched_track_step``, ``sharded_hamming_argmin``) are not ported
 yet.
 """
@@ -29,9 +28,11 @@ RESULT_KEYS = _TRACK_KEYS + ("manhattan_found", "use_manhattan")
 def build_throughput_step(cfg: SlamConfig, batch: int, device=None):
     """Returns step(gray8 (B,H,W) uint8, d16 (B,H,W) int32 in DEPTH_QUANT
     units, carry (batched), view (shared)) -> (result, new_carry): each
-    result value has a leading axis of `batch` streams.  Planes are not
-    part of this slice, so ``manhattan_found`` and ``use_manhattan`` are
-    False, as in the reference with planes compiled out."""
+    result value has a leading axis of `batch` streams.  The step is the
+    points-only body: ``manhattan_found`` and ``use_manhattan`` are fixed
+    False until planes are ported.  The reference's step runs the full
+    body, planes and lines included (its ``build_frame_body`` defaults,
+    manhattanslam_tpu/parallel/mesh.py:110)."""
     device = resolve_device(device)
     body = dt.build_batched_body(cfg, device)
     hw = (cfg.camera.height, cfg.camera.width)

@@ -16,6 +16,7 @@ import torch
 from manhattanslam_tpu_torch.config import CameraConfig, CapacityConfig, OrbConfig, SlamConfig
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
+from manhattanslam_tpu_torch.frontend import frame
 from manhattanslam_tpu_torch.io import trajectory as traj_io
 from manhattanslam_tpu_torch.ops import fast, image, orb
 from manhattanslam_tpu_torch.parallel import mesh, replay
@@ -47,10 +48,10 @@ def _keypoints(h, w, n, seed):
 @pytest.mark.parametrize("hw", [(480, 640), (134, 179), (70, 128), (41, 45)])
 def test_fast_kernel_equals_plain(cuda, hw):
     img = _image(*hw, seed=hw[0], integer=False).to(cuda)
-    before = fast.fast_score_map.launches
+    before = fast.fast_score_levels.launches
     out = fast.fast_score_map(img)
     torch.cuda.synchronize()
-    assert fast.fast_score_map.launches == before + 1
+    assert fast.fast_score_levels.launches == before + 1
     assert torch.equal(out, fast.fast_score_map_plain(img))
 
 
@@ -81,6 +82,10 @@ def test_wrapper_checks_inputs(cuda):
         orb.ic_angle(torch.zeros((64, 64), device=cuda), torch.zeros((3, 3), device=cuda))
 
 
+def _launches():
+    return fast.fast_score_levels.launches, orb.ic_angle_levels.launches, orb.brief_descriptors.launches
+
+
 def _small_cfg():
     return SlamConfig(
         camera=CameraConfig(fx=160.0, fy=160.0, cx=95.5, cy=71.5, k1=0, k2=0, p1=0, p2=0, k3=0,
@@ -92,16 +97,18 @@ def _small_cfg():
 
 
 def _batched_inputs(kind, b, hw, n, seed):
-    """A kernel's wrapper inputs for b streams, and its plain version."""
+    """A kernel's wrapper inputs for b streams, the wrapper, its plain
+    version and the wrapper that counts the launch."""
     imgs = torch.stack([_image(*hw, seed=seed + i, integer=kind != "fast") for i in range(b)])
     if kind == "fast":
-        return (imgs,), fast.fast_score_map, fast.fast_score_map_plain
+        return (imgs,), fast.fast_score_map, fast.fast_score_map_plain, fast.fast_score_levels
     xy = torch.stack([_keypoints(*hw, n, seed=seed + 10 + i) for i in range(b)])
     if kind == "ic_angle":
-        return (imgs, xy), orb.ic_angle, orb.ic_angle_plain
+        return (imgs, xy), orb.ic_angle, orb.ic_angle_plain, orb.ic_angle_levels
     angle = torch.from_numpy(
         np.random.default_rng(seed).uniform(-math.pi, math.pi, (b, n)).astype(np.float32))
-    return (imgs, xy, angle), orb.brief_descriptors, orb.brief_descriptors_plain
+    return ((imgs, xy, angle), orb.brief_descriptors, orb.brief_descriptors_plain,
+            orb.brief_descriptors)
 
 
 @pytest.mark.parametrize("kind", ["fast", "ic_angle", "brief"])
@@ -109,12 +116,12 @@ def _batched_inputs(kind, b, hw, n, seed):
 def test_batched_kernel_equals_plain_and_single_launches(cuda, kind, hw, n):
     """One launch for 3 streams: equal to the plain version (IC angle within
     1e-4 rad) and to 3 single launches."""
-    args, wrapper, plain = _batched_inputs(kind, 3, hw, n, seed=hw[0] + n)
+    args, wrapper, plain, counted = _batched_inputs(kind, 3, hw, n, seed=hw[0] + n)
     args = tuple(a.to(cuda) for a in args)
-    before = wrapper.launches
+    before = counted.launches
     out = wrapper(*args)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert counted.launches == before + 1
     ref = plain(*args)
     if kind == "ic_angle":
         d = torch.remainder(out - ref + math.pi, 2 * math.pi) - math.pi
@@ -125,12 +132,112 @@ def test_batched_kernel_equals_plain_and_single_launches(cuda, kind, hw, n):
         assert torch.equal(out[i], wrapper(*(a[i] for a in args))), i
 
 
+TUM1_SHAPES = image.pyramid_shapes(480, 640, 8, 1.2)
+TUM1_BUDGETS = OrbConfig(n_features=1000).features_per_level()
+
+
+def _stacks(b, seed, integer):
+    """b images at each of TUM1's 8 pyramid level shapes: (b, h, w) each."""
+    return [torch.stack([_image(*hw, seed=seed + 100 * li + i, integer=integer) for i in range(b)])
+            for li, hw in enumerate(TUM1_SHAPES)]
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_fast_levels_launch_equals_plain_and_other_launches(cuda, b):
+    """One launch over TUM1's 8 level shapes: equal to the plain version at
+    every level, to one launch per level and to b single-image launches,
+    and each level a contiguous view of one level-major buffer."""
+    levels = [lv.to(cuda) for lv in _stacks(b, seed=b, integer=False)]
+    before = fast.fast_score_levels.launches
+    scores = fast.fast_score_levels(levels)
+    torch.cuda.synchronize()
+    assert fast.fast_score_levels.launches == before + 1
+    base = scores[0].data_ptr()
+    offset = 0
+    for li, (lv, sc) in enumerate(zip(levels, scores)):
+        assert sc.shape == lv.shape and sc.is_contiguous(), li
+        assert sc.data_ptr() == base + 4 * offset, li
+        offset += lv.numel()
+        assert torch.equal(sc, fast.fast_score_map_plain(lv)), li
+        assert torch.equal(sc, fast.fast_score_map(lv)), li
+    for i in range(b if b > 1 else 0):
+        for li, (sc, single) in enumerate(zip(scores, fast.fast_score_levels([lv[i] for lv in levels]))):
+            assert torch.equal(sc[i], single), (i, li)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_ic_levels_launch_within_tolerance_and_bitwise_across_launch_shapes(cuda, b):
+    """One launch for every level's keypoints (level-major): within 1e-4
+    rad of the plain version, and bitwise equal to one launch per level,
+    to a launch over a subset of the levels and to single-image launches."""
+    levels = [lv.to(cuda) for lv in _stacks(b, seed=7 * b, integer=True)]
+    xys = [torch.stack([_keypoints(*hw, n, seed=li * 10 + i) for i in range(b)]).to(cuda)
+           for li, (hw, n) in enumerate(zip(TUM1_SHAPES, TUM1_BUDGETS))]
+    xy_flat = torch.cat([xy.reshape(-1, 2) for xy in xys])
+    before = orb.ic_angle_levels.launches
+    ang = orb.ic_angle_levels(levels, xy_flat, TUM1_BUDGETS)
+    torch.cuda.synchronize()
+    assert orb.ic_angle_levels.launches == before + 1
+    d = orb.ic_angle_levels_plain(levels, xy_flat, TUM1_BUDGETS) - ang
+    assert float((torch.remainder(d + math.pi, 2 * math.pi) - math.pi).abs().max()) < 1e-4
+    views = orb.level_keypoint_views(ang, TUM1_BUDGETS, (b,))
+    for li, (lv, xy, v) in enumerate(zip(levels, xys, views)):
+        assert torch.equal(v, orb.ic_angle(lv, xy)), li
+    sub = slice(2, 6)
+    part = orb.ic_angle_levels(levels[sub], torch.cat([xy.reshape(-1, 2) for xy in xys[sub]]),
+                               TUM1_BUDGETS[sub])
+    assert torch.equal(part, torch.cat([v.reshape(-1) for v in views[sub]]))
+    for i in range(b if b > 1 else 0):
+        single = orb.ic_angle_levels([lv[i] for lv in levels], torch.cat([xy[i] for xy in xys]),
+                                     TUM1_BUDGETS)
+        assert torch.equal(single, torch.cat([v[i] for v in views])), i
+
+
+def test_level_wrappers_check_inputs(cuda):
+    imgs = [torch.zeros((2, 64, 64), device=cuda), torch.zeros((3, 50, 50), device=cuda)]
+    with pytest.raises(ValueError):  # two leading shapes
+        fast.fast_score_levels(imgs)
+    with pytest.raises(ValueError):  # more levels than the table holds
+        fast.fast_score_levels([imgs[0]] * 9)
+    with pytest.raises(ValueError):  # keypoints of another count than the budgets
+        orb.ic_angle_levels([imgs[0]], torch.zeros((5, 2), device=cuda), [3])
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_extractor_launches_fast_and_ic_angle_once_per_frame(cuda, b):
+    """The extractor on the card at small_cfg size (its coarsest level is
+    too small for the patch window and drops out of the level tables):
+    FAST and IC angle launched once per frame or batched step, BRIEF once
+    per active level, and the features those of one level at a time."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=3, cam=cfg.camera)
+    gray = torch.stack([torch.from_numpy(seq.frame(i)[1]).round() for i in range(b)]).to(cuda)
+    depth = torch.stack([torch.from_numpy(seq.frame(i)[2]) for i in range(b)]).to(cuda)
+    active = frame.active_levels(cfg)
+    assert len(active) < cfg.orb.n_levels
+    extract = frame.build_extractor(cfg, cuda)
+    before = _launches()
+    feats = extract(gray, depth)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_launches(), before)] == [1, 1, len(active)]
+    ops = image.pyramid_operators(cfg.camera.height, cfg.camera.width, cfg.orb.n_levels,
+                                  cfg.orb.scale_factor, cuda)
+    levels = image.build_pyramid(gray, ops)
+    budgets = cfg.orb.features_per_level()
+    start = 0
+    for li, n in enumerate(budgets):
+        one = frame._extract_level(levels[li], n, cfg)
+        for k in ("response", "valid", "angle", "desc"):
+            assert torch.equal(feats[k][:, start:start + n], one[k]), (li, k)
+        start += n
+
+
 def test_replay_step_matches_single_stream_step(cuda):
     """The batched replay on the card, 3 streams at different frame offsets
     against the shared view of keyframe 0: each stream's pose within 1e-3 m
     and 1e-3 rad of the single-stream step on the same frame and carry,
-    every stream tracked, each kernel launched once per pyramid level per
-    step whatever the number of streams."""
+    every stream tracked, FAST and IC angle launched once per step and
+    BRIEF once per pyramid level per step whatever the number of streams."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=30, cam=cfg.camera)
     first = [1, 4, 8]
@@ -145,10 +252,9 @@ def test_replay_step_matches_single_stream_step(cuda):
     carry = replay.start_carry(cfg, seq, first, cuda)
     for i in range(3):
         g8, d16 = replay.step_frames(native, first, i, cuda)
-        before = fast.fast_score_map.launches, orb.ic_angle.launches, orb.brief_descriptors.launches
+        before = _launches()
         out, new_carry = step(g8, d16, carry, view)
-        after = fast.fast_score_map.launches, orb.ic_angle.launches, orb.brief_descriptors.launches
-        assert all(a - b == per_step for a, b in zip(after, before))
+        assert [a - b for a, b in zip(_launches(), before)] == [1, 1, per_step]
         assert bool(out["tracked_ok"].all()), i
         for s in range(len(first)):
             res, _ = single(g8[s], d16[s], {k: v[s] for k, v in carry.items()}, view)

@@ -71,9 +71,9 @@ def test_corners_exact_vs_reference(rendered):
 def test_wrapper_runs_plain_version_on_cpu():
     """On a CPU tensor the wrapper is the plain version and counts nothing."""
     img = torch.from_numpy(_images()["random"])
-    before = pfast.fast_score_map.launches
+    before = pfast.fast_score_levels.launches
     assert torch.equal(pfast.fast_score_map(img), pfast.fast_score_map_plain(img))
-    assert pfast.fast_score_map.launches == before
+    assert pfast.fast_score_levels.launches == before
 
 
 def test_wrapper_rejects_other_devices():

@@ -130,10 +130,10 @@ def test_wrappers_run_plain_versions_on_cpu():
     rng = np.random.default_rng(9)
     img = torch.from_numpy(rng.integers(0, 256, (80, 120)).astype(np.float32))
     xy = torch.from_numpy(_keypoints(rng, 80, 120, 10))
-    before = (porb.ic_angle.launches, porb.brief_descriptors.launches)
+    before = (porb.ic_angle_levels.launches, porb.brief_descriptors.launches)
     ang = porb.ic_angle(img, xy)
     assert torch.equal(ang, porb.ic_angle_plain(img, xy))
     assert torch.equal(
         porb.brief_descriptors(img, xy, ang), porb.brief_descriptors_plain(img, xy, ang)
     )
-    assert (porb.ic_angle.launches, porb.brief_descriptors.launches) == before
+    assert (porb.ic_angle_levels.launches, porb.brief_descriptors.launches) == before

@@ -114,13 +114,15 @@ def test_batched_wrappers_run_plain_versions_on_cpu():
     imgs = torch.from_numpy(rng.integers(0, 256, (2, 64, 96)).astype(np.float32))
     xy = torch.from_numpy(_batched_keypoints(rng, 2, 64, 96, 9))
     angle = torch.from_numpy(rng.uniform(-3, 3, (2, 9)).astype(np.float32))
-    before = (pfast.fast_score_map.launches, porb.ic_angle.launches, porb.brief_descriptors.launches)
+    before = (pfast.fast_score_levels.launches, porb.ic_angle_levels.launches,
+              porb.brief_descriptors.launches)
     assert torch.equal(pfast.fast_score_map(imgs), pfast.fast_score_map_plain(imgs))
     assert torch.equal(porb.ic_angle(imgs, xy), porb.ic_angle_plain(imgs, xy))
     assert torch.equal(
         porb.brief_descriptors(imgs, xy, angle), porb.brief_descriptors_plain(imgs, xy, angle)
     )
-    after = (pfast.fast_score_map.launches, porb.ic_angle.launches, porb.brief_descriptors.launches)
+    after = (pfast.fast_score_levels.launches, porb.ic_angle_levels.launches,
+             porb.brief_descriptors.launches)
     assert after == before
 
 
@@ -239,8 +241,9 @@ def test_batched_entry_at_b1_equals_single_body(replay):
 
 @pytest.mark.parametrize("batch", [1, 2])
 def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, batch):
-    """Each kernel wrapper is called once per pyramid level (that is large
-    enough for the patch window) per step, whatever the number of streams."""
+    """Whatever the number of streams, the FAST and IC angle wrappers are
+    called once per step for all pyramid levels, and BRIEF's once per
+    level (that is large enough for the patch window) per step."""
     pcfg, _, native, _, view, T0, _ = replay
     calls = {}
 
@@ -253,8 +256,8 @@ def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, bat
 
         monkeypatch.setattr(module, name, counted)
 
-    spy(pfast, "fast_score_map")
-    spy(porb, "ic_angle")
+    spy(pfast, "fast_score_levels")
+    spy(porb, "ic_angle_levels")
     spy(porb, "brief_descriptors")
     shapes = pimage.pyramid_shapes(pcfg.camera.height, pcfg.camera.width, pcfg.orb.n_levels,
                                    pcfg.orb.scale_factor)
@@ -265,7 +268,8 @@ def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, bat
     n_steps = 2
     for i in range(n_steps):
         step(*preplay.step_frames(native, first, i, CPU), carry, view)
-    assert calls == {n: n_steps * n_active for n in ("fast_score_map", "ic_angle", "brief_descriptors")}
+    assert calls == {"fast_score_levels": n_steps, "ic_angle_levels": n_steps,
+                     "brief_descriptors": n_steps * n_active}
 
 
 def test_throughput_step_rejects_wrong_frames(small_cfg):
