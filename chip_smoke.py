@@ -300,6 +300,29 @@ def _measure_levels(cfg, dev, imgs: torch.Tensor, stats: dict, names: tuple) -> 
     st_ic["bytes"] += 4 * len(orb_ops.IC_ROW_EXTENT) + 8 * xy_flat.shape[0] + 4 * ang.numel()
     st_ic["ops"] += IC_OPS_PER_PIXEL * float(circ.sum()) * ang.numel()
 
+    # BRIEF's whole per-level chain, every level in one graph: the
+    # integer-rounded blur, cos/sin and one BRIEF launch per level; and
+    # the blur alone
+    chain_out = [torch.empty(xy.shape[:-1] + (8,), dtype=torch.int32, device=dev)
+                 for xy, _, _ in kps]
+
+    def chain_launch(s):
+        for lv, (xy, _, _), a, out in zip(levels, kps, angles, chain_out):
+            blurred = torch.round(image_ops.gaussian_blur(lv, 7, 2.0))
+            ca, sa = torch.cos(a), torch.sin(a)
+            fns["brief"](blurred.data_ptr(), xy.data_ptr(), ca.data_ptr(), sa.data_ptr(),
+                         pattern.data_ptr(), out.data_ptr(), b, xy.shape[-2], *lv.shape[-2:], s)
+
+    def blur_launch(s):
+        for lv in levels:
+            torch.round(image_ops.gaussian_blur(lv, 7, 2.0))
+
+    st_brief["chain_device_ms"] = graph_ms(chain_launch)
+    st_brief["blur_device_ms"] = graph_ms(blur_launch)
+    log(f"kernels {names[2]}: per-level chain (blur, cos/sin, {len(levels)} BRIEF launches) "
+        f"device {st_brief['chain_device_ms']} ms, the blur alone device "
+        f"{st_brief['blur_device_ms']} ms")
+
     for li, lv, (xy, _, _), a in zip(active, levels, kps, angles):
         h, w = lv.shape[-2:]
         n = xy.shape[-2]
