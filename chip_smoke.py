@@ -11,34 +11,37 @@ Phases, each printing one line with its elapsed seconds:
 2. kernels - at the shapes of all 8 pyramid levels of a TUM1 frame (640x480,
              1000 ORB features), hold each kernel against its plain PyTorch
              version on the card, launched as the extractor launches it
-             (FAST and IC angle once for all levels, BRIEF once per level):
+             (each once for all levels; BRIEF blurs the raw levels itself):
              FAST scores and BRIEF words equal, angles within 1e-4 rad at
              the valid keypoints, and the all-level launches equal to one
-             launch per level.  Time each kernel twice: `ms`, CUDA events
-             around 20 back-to-back calls from Python (median of 5 such
-             windows), and `device_ms`, the same 20 launches captured once
-             in a CUDA graph and replayed between two events, which leaves
-             out the host's issue rate; compute each kernel's bound.  Then
-             the same for B = 8 different frames in one launch (FAST and IC
-             angle) or one per level (BRIEF), each also held equal to B
-             single-image launches, with the bound recomputed for the B
-             frames; and the batched pyramid and features against
-             single-frame extraction (reported).
+             launch per level (BRIEF also to its other thread layout).
+             Time each kernel twice: `ms`, CUDA events around 20
+             back-to-back calls from Python (median of 5 such windows), and
+             `device_ms`, the same 20 launches captured once in a CUDA
+             graph and replayed between two events, which leaves out the
+             host's issue rate; compute each kernel's bound.  Log BRIEF's
+             `device_ms` in both thread layouts and that of the eager blur
+             chain its kernel replaced.  Then the same for B = 8 different
+             frames in one launch, each also held equal to B single-image
+             launches, with the bound recomputed for the B frames; and the
+             batched pyramid and features against single-frame extraction
+             (reported).
 3. track   - the points-only System over 30 synthetic 640x480 frames at the
              TUM1 camera, with every kernel's launch count set to 0 first:
              all frames tracked, ATE against the renderer's ground truth
-             below 0.05 m, FAST and IC angle launched once per frame and
-             BRIEF once per level per frame.
+             below 0.05 m, FAST, IC angle and BRIEF each launched once per
+             frame.
 4. replay  - the batched multi-sequence replay (BASELINE config 5) through
              parallel/mesh.py: B = 8 streams of the same 640x480 box room,
              stream s at frame offset s, against the one shared map view of
              keyframe 0, for 12 steps (the first not timed), with the launch
              counts set to 0 first: every stream tracked on every step,
-             FAST and IC angle launched once per step and BRIEF once per
-             level per step, each stream's pose within 1e-3 m / 1e-3 rad
-             of the single-stream step run on the same frame and carry,
-             and the poses' RMS error against ground truth below 0.05 m.  Prints ms per step, aggregate frames/s at
-             B = 8 and B = 1 (the same entry point) and the peak memory.
+             FAST, IC angle and BRIEF each launched once per step, each
+             stream's pose within 1e-3 m / 1e-3 rad of the single-stream
+             step run on the same frame and carry, and the poses' RMS
+             error against ground truth below 0.05 m.  Prints ms per step,
+             aggregate frames/s at B = 8 and B = 1 (the same entry point)
+             and the peak memory.
 
 Any failure raises and the script exits nonzero.  It writes only into a
 temporary directory and the kernel build directory, and starts no thread.
@@ -91,12 +94,13 @@ IC_OPS_PER_PIXEL = 4
 # per pattern point: 4 multiplies, 2 add/sub, 2 adds, 2 roundings,
 # 4 clamps; per pair 2 points + 1 compare
 BRIEF_OPS_PER_PAIR = 2 * 14 + 1
+# per blurred pixel: 7 multiplies and 6 adds in each of the two passes
+BLUR_OPS_PER_PIXEL = 2 * (7 + 6)
 
 # One row per TPU kernel (each function that reaches pl.pallas_call).  A
-# single kernel and its batched twin are served by one CUDA kernel (FAST
-# and IC angle: one launch for all pyramid levels and streams; BRIEF: one
-# per level for all streams); the single rows count launches on the track
-# phase's path, the batched rows on the replay's.
+# single kernel and its batched twin are served by one CUDA kernel, one
+# launch for all pyramid levels and streams; the single rows count
+# launches on the track phase's path, the batched rows on the replay's.
 _FAST = "manhattanslam_tpu_torch/csrc/fast.cu"
 _IC = "manhattanslam_tpu_torch/csrc/ic_angle.cu"
 _BRIEF = "manhattanslam_tpu_torch/csrc/brief.cu"
@@ -110,7 +114,7 @@ KERNELS = {
         replaces="manhattanslam_tpu/ops/orb_pallas.py:235 (_make_moments_kernel, pallas_call :285)",
     ),
     "brief": dict(
-        source=_BRIEF, path="track", wrapper=orb_ops.brief_descriptors,
+        source=_BRIEF, path="track", wrapper=orb_ops.brief_levels,
         replaces="manhattanslam_tpu/ops/orb_pallas.py:66 (_make_brief_kernel, pallas_call :117)",
     ),
     "fast_score_batched": dict(
@@ -123,12 +127,12 @@ KERNELS = {
         "(_make_moments_kernel_batched, pallas_call :341)",
     ),
     "brief_batched": dict(
-        source=_BRIEF, path="replay", wrapper=orb_ops.brief_descriptors,
+        source=_BRIEF, path="replay", wrapper=orb_ops.brief_levels,
         replaces="manhattanslam_tpu/ops/orb_pallas.py:133 "
         "(_make_brief_kernel_batched, pallas_call :176)",
     ),
 }
-WRAPPERS = (fast_ops.fast_score_levels, orb_ops.ic_angle_levels, orb_ops.brief_descriptors)
+WRAPPERS = (fast_ops.fast_score_levels, orb_ops.ic_angle_levels, orb_ops.brief_levels)
 
 
 def reset_launches() -> None:
@@ -140,11 +144,10 @@ def read_launches() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-def launches_per_frame(cfg) -> dict:
+def launches_per_frame() -> dict:
     """Wrapper launches of one frame's (or one batched step's) extraction:
-    FAST and IC angle once for all levels, BRIEF once per active level."""
-    return {"fast_score_levels": 1, "ic_angle_levels": 1,
-            "brief_descriptors": len(frame.active_levels(cfg))}
+    each kernel once for all levels."""
+    return {fn.__name__: 1 for fn in WRAPPERS}
 
 
 def log(msg: str) -> None:
@@ -216,9 +219,9 @@ def phase_build() -> str:
 
 def _measure_levels(cfg, dev, imgs: torch.Tensor, stats: dict, names: tuple) -> None:
     """Every kernel over the pyramid of the (B, H, W) stack `imgs`, as the
-    extractor launches it (FAST and IC angle once for all levels and all B
-    images, BRIEF once per level), against its plain version, against one
-    launch per level and, for B > 1, against B single-image launches.  Adds
+    extractor launches it (each once for all levels and all B images),
+    against its plain version, against one launch per level and, for
+    B > 1, against B single-image launches.  Adds
     the times, error and bound terms to stats[name] for the (fast,
     ic_angle, brief) names."""
     b = imgs.shape[0]
@@ -300,30 +303,7 @@ def _measure_levels(cfg, dev, imgs: torch.Tensor, stats: dict, names: tuple) -> 
     st_ic["bytes"] += 4 * len(orb_ops.IC_ROW_EXTENT) + 8 * xy_flat.shape[0] + 4 * ang.numel()
     st_ic["ops"] += IC_OPS_PER_PIXEL * float(circ.sum()) * ang.numel()
 
-    # BRIEF's whole per-level chain, every level in one graph: the
-    # integer-rounded blur, cos/sin and one BRIEF launch per level; and
-    # the blur alone
-    chain_out = [torch.empty(xy.shape[:-1] + (8,), dtype=torch.int32, device=dev)
-                 for xy, _, _ in kps]
-
-    def chain_launch(s):
-        for lv, (xy, _, _), a, out in zip(levels, kps, angles, chain_out):
-            blurred = torch.round(image_ops.gaussian_blur(lv, 7, 2.0))
-            ca, sa = torch.cos(a), torch.sin(a)
-            fns["brief"](blurred.data_ptr(), xy.data_ptr(), ca.data_ptr(), sa.data_ptr(),
-                         pattern.data_ptr(), out.data_ptr(), b, xy.shape[-2], *lv.shape[-2:], s)
-
-    def blur_launch(s):
-        for lv in levels:
-            torch.round(image_ops.gaussian_blur(lv, 7, 2.0))
-
-    st_brief["chain_device_ms"] = graph_ms(chain_launch)
-    st_brief["blur_device_ms"] = graph_ms(blur_launch)
-    log(f"kernels {names[2]}: per-level chain (blur, cos/sin, {len(levels)} BRIEF launches) "
-        f"device {st_brief['chain_device_ms']} ms, the blur alone device "
-        f"{st_brief['blur_device_ms']} ms")
-
-    for li, lv, (xy, _, _), a in zip(active, levels, kps, angles):
+    for lv, (xy, _, _) in zip(levels, kps):
         h, w = lv.shape[-2:]
         n = xy.shape[-2]
         # offsets that keep the B images' pixel indices apart when counting
@@ -332,31 +312,68 @@ def _measure_levels(cfg, dev, imgs: torch.Tensor, stats: dict, names: tuple) -> 
         disc_px = orb_ops.ic_patch_index(xy, h, w).reshape(b, n, -1)[..., circ.reshape(-1)]
         st_ic["bytes"] += 4 * int(torch.unique(disc_px + img_off).numel())
 
-        # BRIEF, one launch per level: bit-exact words from the kernel's angles
-        blurred = torch.round(image_ops.gaussian_blur(lv, 7, 2.0))
-        desc = orb_ops.brief_descriptors(blurred, xy, a)
-        desc_p = orb_ops.brief_descriptors_plain(blurred, xy, a)
-        bad = int((desc != desc_p).any(dim=-1).sum())
-        check(bad == 0, f"{names[2]} level {li}: {bad} keypoints differ from the plain version")
-        for i in range(b if b > 1 else 0):
-            check(torch.equal(desc[i], orb_ops.brief_descriptors(blurred[i], xy[i], a[i])),
-                  f"{names[2]} level {li}: image {i} != single launch")
-        ca, sa = torch.cos(a), torch.sin(a)
-        desc_out = torch.empty((b, n, 8), dtype=torch.int32, device=dev)
+    # BRIEF: one launch for all levels, the blur inside, bit-exact with the
+    # plain version (blur, round, samples) from the kernel's angles, and
+    # bitwise equal to one launch per level, to B single-image launches and
+    # to the kernel's other layout (a block per keypoint)
+    words = orb_ops.brief_levels(levels, xy_flat, ang, budgets)
+    bad = int((words != orb_ops.brief_levels_plain(levels, xy_flat, ang, budgets)).any(-1).sum())
+    check(bad == 0, f"{names[2]}: {bad} keypoints differ from the plain version")
+    views = orb_ops.level_keypoint_views(words, budgets, (b,))
+    for li, lv, (xy, _, _), a, v in zip(active, levels, kps, angles, views):
+        check(torch.equal(v, orb_ops.brief_level(lv, xy, a)),
+              f"{names[2]} level {li}: all-level launch != per-level launch")
+    for i in range(b if b > 1 else 0):
+        single = orb_ops.brief_levels([lv[i] for lv in levels],
+                                      torch.cat([xy[i] for xy, _, _ in kps]),
+                                      torch.cat([a[i] for a in angles]), budgets)
+        check(torch.equal(torch.cat([v[i] for v in views]), single),
+              f"{names[2]}: image {i} != single-image launch")
+    ca, sa = torch.cos(ang), torch.sin(ang)
+    words_out = torch.empty_like(words)
+    layouts = {t: orb_ops.brief_kernel_args(levels, budgets, threads=t) for t in (32, 128)}
 
-        def brief_launch(s):
-            fns["brief"](blurred.data_ptr(), xy.data_ptr(), ca.data_ptr(), sa.data_ptr(),
-                         pattern.data_ptr(), desc_out.data_ptr(), b, n, h, w, s)
+    def brief_launcher(threads):
+        def launch(s):
+            err = fns["brief"](*layouts[threads], xy_flat.data_ptr(), ca.data_ptr(),
+                               sa.data_ptr(), pattern.data_ptr(), words_out.data_ptr(), s)
+            kernel_build.check_launch("brief", err)
+        return launch
 
-        st_brief["ms"] += median_ms(lambda: brief_launch(stream))
-        st_brief["device_ms"] += graph_ms(brief_launch)
-        st_brief["plain_ms"] += median_ms(
-            lambda: orb_ops.brief_descriptors_plain(blurred, xy, a))
-        sample_px = orb_ops.brief_sample_index(xy, ca, sa, h, w).reshape(b, n, -1)
-        n_uniq = int(torch.unique(sample_px + img_off).numel())
-        st_brief["bytes"] += (
-            4 * n_uniq + 8 * b * n + 8 * b * n + 4 * pattern.numel() + 32 * b * n)
-        st_brief["ops"] += BRIEF_OPS_PER_PAIR * 256 * b * n
+    for threads in layouts:
+        brief_launcher(threads)(stream)
+        check(torch.equal(words_out, words), f"{names[2]}: layout of {threads} threads differs")
+    brief_launch = brief_launcher(orb_ops.BRIEF_THREADS_PER_KEYPOINT)
+    st_brief["ms"] += median_ms(lambda: brief_launch(stream))
+    st_brief["device_ms"] += graph_ms(brief_launch)
+    st_brief["plain_ms"] += median_ms(
+        lambda: orb_ops.brief_levels_plain(levels, xy_flat, ang, budgets))
+    layout_ms = {t: graph_ms(brief_launcher(t)) for t in layouts}
+
+    def blur_launch(s):
+        for lv in levels:
+            torch.round(image_ops.gaussian_blur(lv, orb_ops.BLUR_KSIZE, orb_ops.BLUR_SIGMA))
+
+    log(f"kernels {names[2]}: device ms by threads per keypoint {layout_ms}; the eager "
+        f"integer-rounded blur of all {len(levels)} levels that the kernel replaces, in one "
+        f"graph: device {graph_ms(blur_launch)} ms")
+    # the bound: each level pixel within the blur's radius of a sample read
+    # once, keypoints and angles in, words out; the pairs' float ops and
+    # 26 per distinct blurred pixel sampled
+    sampled = blurred_px = 0
+    for lv, (xy, _, _), a in zip(levels, kps, angles):
+        h, w = lv.shape[-2:]
+        mask = torch.zeros(b * h * w, device=dev)
+        img_off = (torch.arange(b, device=dev) * h * w)[:, None, None]
+        idx = orb_ops.brief_sample_index(xy, torch.cos(a), torch.sin(a), h, w)
+        mask[(idx.reshape(b, xy.shape[-2], -1) + img_off).reshape(-1)] = 1.0
+        sampled += int(mask.sum())
+        r = orb_ops.BLUR_KSIZE // 2
+        near = torch.nn.functional.max_pool2d(mask.view(b, 1, h, w), 2 * r + 1, 1, r)
+        blurred_px += int(near.sum())
+    n_kp = xy_flat.shape[0]
+    st_brief["bytes"] += 4 * blurred_px + 12 * n_kp + 4 * pattern.numel() + 32 * n_kp
+    st_brief["ops"] += BRIEF_OPS_PER_PAIR * 256 * n_kp + BLUR_OPS_PER_PIXEL * sampled
 
 
 def _compare_extraction(cfg, dev, gray: torch.Tensor, depth: torch.Tensor) -> None:
@@ -399,7 +416,7 @@ def phase_kernels(cfg, dev, frames) -> dict:
     _measure_levels(cfg, dev, gray[:1].contiguous(), stats, ("fast_score", "ic_angle", "brief"))
     _measure_levels(cfg, dev, gray, stats,
                     ("fast_score_batched", "ic_angle_batched", "brief_batched"))
-    per_frame = launches_per_frame(cfg)
+    per_frame = launches_per_frame()
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(st.pop("bytes"), st.pop("ops"))
         log(f"kernels {name}: max_abs_err {st['max_abs_err']:.3g}, "
@@ -450,9 +467,9 @@ def phase_track(cfg, seq, frames, tmp: str) -> tuple[dict, float]:
     for name, n in launches.items():
         if n <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the main path")
-        if n != N_FRAMES * launches_per_frame(cfg)[name]:
+        if n != N_FRAMES * launches_per_frame()[name]:
             raise RuntimeError(f"kernel {name} launched {n} times in {N_FRAMES} frames, not "
-                               f"{launches_per_frame(cfg)[name]} per frame")
+                               f"{launches_per_frame()[name]} per frame")
     log(f"phase track: {time.perf_counter() - t0:.1f} s")
     return launches, med
 
@@ -505,7 +522,7 @@ def phase_replay(cfg, dev, seq, frames, track_ms: float) -> dict:
     native = [dt.to_native(g, d) for _, g, d in frames]
     gt_cw = replay.start_poses(seq, range(N_FRAMES))
     first = list(range(BATCH))
-    per_step = launches_per_frame(cfg)
+    per_step = launches_per_frame()
 
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
@@ -517,8 +534,7 @@ def phase_replay(cfg, dev, seq, frames, track_ms: float) -> dict:
     _, _, outs_1, ms_1, _ = _replay_run(cfg, dev, seq, native, view, first[:1])
     med_1 = statistics.median(ms_1[1:])
 
-    # every stream tracked on every step; FAST and IC angle launched once
-    # per step, BRIEF once per level per step
+    # every stream tracked on every step; each kernel launched once per step
     for i, out in enumerate(outs):
         if not out["tracked_ok"].all():
             raise RuntimeError(f"replay step {i}: streams {np.nonzero(~out['tracked_ok'])[0]} lost")

@@ -1,84 +1,213 @@
-// Steered BRIEF: 256 rotated intensity comparisons packed into 8 words.
+// Steered BRIEF for every pyramid level of B images, in one launch, with
+// the integer-rounded Gaussian blur it samples computed inside.
 //
 // Replaces the Pallas TPU kernels _make_brief_kernel and
 // _make_brief_kernel_batched (manhattanslam_tpu/ops/orb_pallas.py) plus
-// the compare-and-pack of its wrapper brief_descriptors_pallas.  For each
-// keypoint and pattern point (py, px): rx = px*cos - py*sin,
-// ry = px*sin + py*cos, sample at clip(round(x + rx), 0, w-1),
-// clip(round(y + ry), 0, h-1) of the integer-rounded blur; bit j of word
-// i is sample[2*(32i+j)] < sample[2*(32i+j)+1].  Bit-exact with the plain
-// PyTorch version: cos/sin come in from the caller, every product and sum
-// is rounded on its own (__fmul_rn/__fadd_rn: no fused multiply-add) and
-// rintf rounds half to even like torch.round.
+// the compare-and-pack of its wrapper brief_descriptors_pallas, and the
+// blur in front of them (frontend/frame.py: round(gaussian_blur(level,
+// 7, 2.0))).  For each keypoint and pattern point (py, px):
+// rx = px*cos - py*sin, ry = px*sin + py*cos, sample at
+// clip(round(x + rx), 0, w-1), clip(round(y + ry), 0, h-1) of the
+// integer-rounded blur; bit j of word i is
+// sample[2*(32i+j)] < sample[2*(32i+j)+1].
 //
-// Bound on the H100: each keypoint gathers 512 scattered 4-byte samples
-// (at most 2 KB) and writes 32 bytes against ~20 float ops per pair, so
-// the (scattered) bytes bound it; a frame's ~1000 keypoints are a few
-// microseconds of traffic and the launch dominates.  Design: one warp per
-// keypoint of the flat (B * n) batch (keypoint k belongs to image k / n,
-// so one launch serves the single stream and the batched replay), lane j
-// evaluates pair 32i+j of word i, and __ballot_sync packs the 32
-// comparisons into the word in one instruction, so the 512 samples never
-// leave registers (the TPU kernel's one-hot MXU row select, patch
-// DMA and 8/128-aligned corners have no counterpart here).
+// Bit-exact with the plain PyTorch version (ops/orb.py brief_levels_plain):
+// - the blur is ops/image.py gaussian_blur: a vertical then a horizontal
+//   7-tap pass with reflect-101 borders (F.pad mode "reflect"), each
+//   summed in tap order as out = w0*x0, out = out + wi*xi, with every
+//   product and sum rounded on its own (__fmul_rn/__fadd_rn: nvcc
+//   contracts nothing into a fused multiply-add), then rintf, which
+//   rounds half to even like torch.round;
+// - cos/sin come in from the caller (torch), so both see the same values.
+//
+// Bound on the H100: per keypoint 256 pairs of ~29 float ops, 32 bytes
+// out, and the blur of the pixels its samples touch (26 ops each, from
+// the raw pixels within 3 of them); a frame's ~1000 keypoints read under
+// a megabyte, so the launch's fixed cost and the blur's arithmetic set
+// its time.  Design:
+// - Keypoints are level-major, [level][stream][n_l], as csrc/ic_angle.cu
+//   takes them: keypoint k's level follows from the prefix of batch * n_l
+//   in one by-value __grid_constant__ table that also holds each level's
+//   image pointer, h and w, and the 7 blur weights (no upload, capturable
+//   in a CUDA graph).
+// - One warp per keypoint (kThreads = 32; a block of 128 threads per
+//   keypoint is the other layout, chosen at the entry point): it stages
+//   the keypoint's raw 35x35 window (sample radius 14 plus the blur's 3)
+//   into shared memory with reflect-101 indices, runs the vertical pass
+//   into a 29x35 buffer and the horizontal pass, rounded, back into the
+//   first buffer (29x29), so the blurred pixels never leave shared
+//   memory and no pixel of the level is blurred that no sample reads.
+// - Lane j takes pair 32i+j of word i (pattern rows by __ldg from
+//   global memory as one 16-byte load: the 32 lanes read 32 entries, which
+//   __constant__ memory would serialize), and __ballot_sync packs the 32
+//   comparisons into the word.
+// - The window is centred on the keypoint's floor, clamped to the image:
+//   every clipped sample then lies within kSampleR of it (a clip moves a
+//   sample toward the image, which holds the centre).  A keypoint's words
+//   depend on nothing but its own window, so a launch over many levels
+//   and streams is bitwise equal to one per level or per stream.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-__device__ __forceinline__ float sample(const float* __restrict__ img, int h, int w,
-                                        float kx, float ky, float c, float s, int py,
-                                        int px) {
-  const float fpx = static_cast<float>(px);
-  const float fpy = static_cast<float>(py);
-  const float rx = __fsub_rn(__fmul_rn(fpx, c), __fmul_rn(fpy, s));
-  const float ry = __fadd_rn(__fmul_rn(fpx, s), __fmul_rn(fpy, c));
-  float sx = rintf(__fadd_rn(kx, rx));
-  float sy = rintf(__fadd_rn(ky, ry));
-  sx = fminf(fmaxf(sx, 0.f), static_cast<float>(w - 1));
-  sy = fminf(fmaxf(sy, 0.f), static_cast<float>(h - 1));
-  return img[static_cast<int>(sy) * w + static_cast<int>(sx)];
+constexpr int kMaxLevels = 8;
+constexpr int kTaps = 7;                      // blur taps
+constexpr int kBlurR = kTaps / 2;             // 3
+constexpr int kSampleR = 14;                  // ops/orb.py BRIEF_SAMPLE_RADIUS
+constexpr int kWinR = kSampleR + kBlurR;      // 17: raw window radius
+constexpr int kWin = 2 * kWinR + 1;           // 35
+constexpr int kOut = 2 * kSampleR + 1;        // 29: blurred window
+constexpr int kBlock = 128;                   // threads per block
+
+struct BriefTable {
+  const float* img[kMaxLevels];  // (batch, h, w) per level, raw intensities
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int n[kMaxLevels];             // keypoints of one image at the level
+  int kp_start[kMaxLevels + 1];  // prefix over levels of batch * n
+  float weight[kTaps];           // ops/image.py gauss_kernel1d(7, 2.0)
+  int n_levels;
+};
+
+// reflect-101 (F.pad mode "reflect"): -1 -> 1, n -> n-2.  One reflection
+// is exact for -n < i < 2n-1; indices farther out feed no sample and are
+// only clamped into the image.
+__device__ __forceinline__ int reflect101(int i, int n) {
+  i = i < 0 ? -i : i;
+  i = i >= n ? 2 * (n - 1) - i : i;
+  return min(max(i, 0), n - 1);
 }
 
-__global__ void brief_kernel(const float* __restrict__ img, const float* __restrict__ xy,
-                             const float* __restrict__ cosa, const float* __restrict__ sina,
-                             const int* __restrict__ pattern, int* __restrict__ desc,
-                             int total, int n, int h, int w) {
-  const int k = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (k >= total) return;  // uniform per warp
-  img += static_cast<size_t>(k / n) * h * w;
+template <int kThreads>
+__device__ __forceinline__ void sync_group() {
+  if constexpr (kThreads == 32) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kBlock)
+brief_levels_kernel(const __grid_constant__ BriefTable t, const float* __restrict__ xy,
+                    const float* __restrict__ cosa, const float* __restrict__ sina,
+                    const int4* __restrict__ pattern, int* __restrict__ desc) {
+  constexpr int kGroups = kBlock / kThreads;  // keypoints per block
+  __shared__ float win[kGroups][kWin * kWin];   // raw, then the rounded blur
+  __shared__ float vert[kGroups][kOut * kWin];  // the vertical pass
+  const int g = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads;
+  const int k = blockIdx.x * kGroups + g;
+  if (k >= t.kp_start[t.n_levels]) return;  // uniform per group
+  int l = 0;
+#pragma unroll
+  for (int j = 1; j < kMaxLevels; ++j) {
+    if (j < t.n_levels && k >= t.kp_start[j]) l = j;
+  }
+  const int h = t.h[l];
+  const int w = t.w[l];
+  const float* img = t.img[l] + static_cast<size_t>((k - t.kp_start[l]) / t.n[l]) * h * w;
   const float kx = xy[2 * k];
   const float ky = xy[2 * k + 1];
+  const int cx = min(max(static_cast<int>(floorf(kx)), 0), w - 1);
+  const int cy = min(max(static_cast<int>(floorf(ky)), 0), h - 1);
+  float* raw = win[g];
+  float* vb = vert[g];
+
+  for (int i = tid; i < kWin * kWin; i += kThreads) {
+    const int r = reflect101(cy - kWinR + i / kWin, h);
+    const int c = reflect101(cx - kWinR + i % kWin, w);
+    raw[i] = __ldg(img + static_cast<size_t>(r) * w + c);
+  }
+  sync_group<kThreads>();
+  for (int i = tid; i < kOut * kWin; i += kThreads) {
+    const float* col = raw + i;  // row i / kWin of the output, taps below
+    float acc = __fmul_rn(t.weight[0], col[0]);
+#pragma unroll
+    for (int j = 1; j < kTaps; ++j) acc = __fadd_rn(acc, __fmul_rn(t.weight[j], col[j * kWin]));
+    vb[i] = acc;
+  }
+  sync_group<kThreads>();
+  for (int i = tid; i < kOut * kOut; i += kThreads) {
+    const float* row = vb + (i / kOut) * kWin + i % kOut;
+    float acc = __fmul_rn(t.weight[0], row[0]);
+#pragma unroll
+    for (int j = 1; j < kTaps; ++j) acc = __fadd_rn(acc, __fmul_rn(t.weight[j], row[j]));
+    raw[i] = rintf(acc);  // raw window no longer read
+  }
+  sync_group<kThreads>();
+
   const float c = cosa[k];
   const float s = sina[k];
+  const float x_max = static_cast<float>(w - 1);
+  const float y_max = static_cast<float>(h - 1);
+  const int lane = tid & 31;
+  auto sample = [&](int py, int px) {
+    const float fpx = static_cast<float>(px);
+    const float fpy = static_cast<float>(py);
+    const float rx = __fsub_rn(__fmul_rn(fpx, c), __fmul_rn(fpy, s));
+    const float ry = __fadd_rn(__fmul_rn(fpx, s), __fmul_rn(fpy, c));
+    const float sx = fminf(fmaxf(rintf(__fadd_rn(kx, rx)), 0.f), x_max);
+    const float sy = fminf(fmaxf(rintf(__fadd_rn(ky, ry)), 0.f), y_max);
+    // within kSampleR of the centre for any finite keypoint; the clamp
+    // only keeps a non-finite one inside the window
+    const int wx = min(max(static_cast<int>(sx) - cx + kSampleR, 0), kOut - 1);
+    const int wy = min(max(static_cast<int>(sy) - cy + kSampleR, 0), kOut - 1);
+    return raw[wy * kOut + wx];
+  };
 #pragma unroll
-  for (int word = 0; word < 8; ++word) {
+  for (int word = tid >> 5; word < 8; word += kThreads / 32) {
     // pattern is (256, 2, 2) int32 as (pair, point, (y, x))
-    const int* p = pattern + (word * 32 + lane) * 4;
-    const float a = sample(img, h, w, kx, ky, c, s, p[0], p[1]);
-    const float b = sample(img, h, w, kx, ky, c, s, p[2], p[3]);
-    const unsigned bits = __ballot_sync(0xffffffffu, a < b);
+    const int4 p = __ldg(pattern + word * 32 + lane);
+    const bool bit = sample(p.x, p.y) < sample(p.z, p.w);
+    const unsigned bits = __ballot_sync(0xffffffffu, bit);
     if (lane == 0) desc[k * 8 + word] = static_cast<int>(bits);
   }
 }
 
 }  // namespace
 
-// img: (batch, h, w) float32 integer-rounded blur; xy: (batch, n, 2)
-// float32 (x, y); cosa, sina: (batch, n) float32; pattern: (256, 2, 2)
-// int32; desc: (batch, n, 8) int32 out (the uint32 words' bits).  All
-// contiguous on the device.  Returns the cudaError_t of the launch (0 on
-// success).
-extern "C" int mslam_brief(const float* img, const float* xy, const float* cosa,
-                           const float* sina, const int* pattern, int* desc, int batch,
-                           int n, int h, int w, void* stream) {
-  const int total = batch * n;
+// img[l]: level l's (batch, h[l], w[l]) float32 raw images; n[l]
+// keypoints of each image at level l; kp_start: n_levels + 1 prefix of
+// batch * n; weight: the 7 blur weights; all host arrays.  sample_radius
+// must be kSampleR (ops/orb.py BRIEF_SAMPLE_RADIUS) and threads_per_keypoint
+// 32 (one warp) or 128 (one block).  xy: (kp_start[n_levels], 2) float32
+// (x, y) level-major; cosa, sina: (kp_start[n_levels],) float32; pattern:
+// (256, 2, 2) int32, 16-byte aligned; desc: the (kp_start[n_levels], 8)
+// int32 output (the uint32 words' bits); all contiguous on the device.
+// Returns the cudaError_t of the launch (0 on success), or
+// cudaErrorInvalidValue for an argument out of range.
+extern "C" int mslam_brief_levels(const void* const* img, const int* h, const int* w,
+                                  const int* n, const int* kp_start, const float* weight,
+                                  int n_levels, int sample_radius, int threads_per_keypoint,
+                                  const float* xy, const float* cosa, const float* sina,
+                                  const int* pattern, int* desc, void* stream) {
+  if (n_levels < 0 || n_levels > kMaxLevels || sample_radius != kSampleR ||
+      (threads_per_keypoint != 32 && threads_per_keypoint != kBlock)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BriefTable t{};
+  for (int l = 0; l < n_levels; ++l) {
+    t.img[l] = static_cast<const float*>(img[l]);
+    t.h[l] = h[l];
+    t.w[l] = w[l];
+    t.n[l] = n[l];
+  }
+  for (int l = 0; l <= n_levels; ++l) t.kp_start[l] = kp_start[l];
+  for (int j = 0; j < kTaps; ++j) t.weight[j] = weight[j];
+  t.n_levels = n_levels;
+  const int total = t.kp_start[n_levels];
   if (total == 0) return 0;
-  const int warps_per_block = 4;
-  const int grid = (total + warps_per_block - 1) / warps_per_block;
-  brief_kernel<<<grid, 32 * warps_per_block, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, xy, cosa, sina, pattern, desc, total, n, h, w);
+  const auto* pat = reinterpret_cast<const int4*>(pattern);
+  auto* s = static_cast<cudaStream_t>(stream);
+  if (threads_per_keypoint == 32) {
+    constexpr int per_block = kBlock / 32;
+    brief_levels_kernel<32><<<(total + per_block - 1) / per_block, kBlock, 0, s>>>(
+        t, xy, cosa, sina, pat, desc);
+  } else {
+    brief_levels_kernel<kBlock><<<total, kBlock, 0, s>>>(t, xy, cosa, sina, pat, desc);
+  }
   return static_cast<int>(cudaGetLastError());
 }

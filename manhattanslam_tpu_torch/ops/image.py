@@ -77,7 +77,7 @@ def build_pyramid(
     return levels
 
 
-def _gauss_kernel1d(ksize: int, sigma: float) -> np.ndarray:
+def gauss_kernel1d(ksize: int, sigma: float) -> np.ndarray:
     r = ksize // 2
     x = np.arange(-r, r + 1, dtype=np.float64)
     k = np.exp(-(x**2) / (2 * sigma**2))
@@ -102,7 +102,7 @@ def _conv1d_shifts(img: torch.Tensor, k: np.ndarray, axis: int, pad_mode: str) -
 
 def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
     """Separable Gaussian with reflect padding (BORDER_REFLECT_101-like)."""
-    k = _gauss_kernel1d(ksize, sigma)
+    k = gauss_kernel1d(ksize, sigma)
     x = _conv1d_shifts(img, k, axis=0, pad_mode="reflect")
     return _conv1d_shifts(x, k, axis=1, pad_mode="reflect")
 

@@ -32,18 +32,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _PI = ctypes.POINTER(ctypes.c_int)  # host array of ints
+_PF = ctypes.POINTER(ctypes.c_float)  # host array of floats
 # C signature of each kernel source's entry point: (symbol, argtypes).
-# FAST and IC angle take a level table (host arrays, one entry per
-# pyramid level, at most 8 levels) and serve every level and stream in one
-# launch; BRIEF takes a leading stream count B (its images are (B, h, w)).
-# The stream handle comes last.
+# Each takes a level table (host arrays, one entry per pyramid level, at
+# most 8 levels) and serves every level and stream in one launch.  The
+# stream handle comes last.
 SIGNATURES = {
     # img[], out[], h[], w[], tiles_x[], tiles_img[], tile_start[], levels, stream
     "fast": ("mslam_fast_score_levels", (_PP, _PP, _PI, _PI, _PI, _PI, _PI, _I, _P)),
     # img[], h[], w[], n[], kp_start[], vmax[], levels, xy, angle, stream
     "ic_angle": ("mslam_ic_angle_levels", (_PP, _PI, _PI, _PI, _PI, _PI, _I, _P, _P, _P)),
-    # img, xy, cos, sin, pattern, desc, B, n, h, w, stream
-    "brief": ("mslam_brief", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # img[], h[], w[], n[], kp_start[], weight[], levels, sample radius,
+    # threads per keypoint, xy, cos, sin, pattern, desc, stream
+    "brief": ("mslam_brief_levels",
+              (_PP, _PI, _PI, _PI, _PI, _PF, _I, _I, _I, _P, _P, _P, _P, _P, _P)),
 }
 
 _lock = threading.Lock()
@@ -108,7 +110,7 @@ def kernel(name: str) -> ctypes._CFuncPtr:
     return fn if fn is not None else build((name,))[name]
 
 
-MAX_LEVELS = 8  # pyramid levels one FAST or IC-angle launch takes (csrc kMaxLevels)
+MAX_LEVELS = 8  # pyramid levels one kernel launch takes (csrc kMaxLevels)
 
 
 def prefix(sizes) -> list[int]:

@@ -2,12 +2,16 @@
 (counterpart of manhattanslam_tpu/ops/orb.py and, for the angle and the
 descriptor, of the Pallas kernels in ops/orb_pallas.py).
 
-``ic_angle_levels`` and ``brief_descriptors`` are kernel wrappers: for
-CPU tensors they run the plain PyTorch versions (``*_plain``); for CUDA
+``ic_angle_levels`` and ``brief_levels`` are kernel wrappers: for CPU
+tensors they run the plain PyTorch versions (``*_plain``); for CUDA
 tensors they launch ``csrc/ic_angle.cu`` / ``csrc/brief.cu`` (bound and
-design notes there) or raise.  ``ic_angle_levels`` takes every pyramid
-level's keypoints in one level-major buffer and makes one launch for all
-of them; ``ic_angle`` is its one-level form.
+design notes there) or raise.  Each takes every pyramid level's
+keypoints in one level-major buffer and makes one launch for all of
+them; ``ic_angle`` and ``brief_level`` are their one-level forms.
+``brief_levels`` takes the raw level images and computes the
+integer-rounded blur that BRIEF samples itself;
+``brief_descriptors_plain`` samples an image blurred already (the
+reference's ``brief_descriptors``).
 
 Every function takes one image with its (N,) keypoints, or B streams'
 images (B, H, W) with (B, N) keypoints each (the reference's vmapped
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from manhattanslam_tpu_torch.ops import image as image_ops
 from manhattanslam_tpu_torch.ops import kernel_build
 
 HALF_PATCH = 15  # IC_Angle circular patch radius (ORBextractor.cc HALF_PATCH_SIZE)
@@ -49,6 +54,17 @@ def _make_pattern(seed: int = 1234) -> np.ndarray:
 
 
 PATTERN = _make_pattern()  # (256, 2, 2) as (bit, point01, (y, x))
+# A rotated pattern point r keeps its norm, so |round(r_x)|, |round(r_y)|
+# <= round(max norm) = 13 at any angle; plus 1 for a keypoint between
+# pixels, every sample lies within this radius of the keypoint's floor
+# (csrc/brief.cu kSampleR, which stages that window plus the blur's)
+BRIEF_SAMPLE_RADIUS = int(np.floor(np.sqrt((PATTERN.astype(np.float64) ** 2).sum(-1)).max()
+                                   + 0.5)) + 1
+# the integer-rounded Gaussian blur BRIEF samples (ORBextractor.cc:850-856)
+BLUR_KSIZE = 7
+BLUR_SIGMA = 2.0
+# csrc/brief.cu layout: 32 = one warp per keypoint, 128 = one block
+BRIEF_THREADS_PER_KEYPOINT = 32
 
 
 def _circular_umax(radius: int = HALF_PATCH) -> np.ndarray:
@@ -200,9 +216,10 @@ def ic_angle_levels_plain(levels, xy_flat, budgets) -> torch.Tensor:
     return out
 
 
-def kernel_args(levels, budgets) -> tuple:
-    """The level-table arguments of one csrc/ic_angle.cu launch (host
-    arrays), to be followed by xy, angle and the stream."""
+def _level_table(levels, budgets) -> tuple:
+    """The level table of a csrc/ic_angle.cu or csrc/brief.cu launch as
+    host arrays: image pointers, h, w, keypoints per image, keypoint
+    starts."""
     shapes = [tuple(lv.shape[-2:]) for lv in levels]
     return (
         kernel_build.c_array(ctypes.c_void_p, [lv.data_ptr() for lv in levels]),
@@ -211,9 +228,37 @@ def kernel_args(levels, budgets) -> tuple:
         kernel_build.c_array(ctypes.c_int, list(budgets)),
         kernel_build.c_array(ctypes.c_int,
                              keypoint_starts(budgets, math.prod(levels[0].shape[:-2]))),
-        kernel_build.c_array(ctypes.c_int, IC_ROW_EXTENT.tolist()),
-        len(levels),
     )
+
+
+def kernel_args(levels, budgets) -> tuple:
+    """The level-table arguments of one csrc/ic_angle.cu launch (host
+    arrays), to be followed by xy, angle and the stream."""
+    return (*_level_table(levels, budgets),
+            kernel_build.c_array(ctypes.c_int, IC_ROW_EXTENT.tolist()), len(levels))
+
+
+def _check_levels(name: str, levels, xy_flat: torch.Tensor, budgets, min_side: int) -> None:
+    """Kernel-side checks of an all-level wrapper: 1 to MAX_LEVELS
+    contiguous float32 images (H_l, W_l) or (B, H_l, W_l) with one leading
+    shape on one CUDA device, each at least min_side on a side, with a
+    budget each, and the contiguous (sum B * n_l, 2) float32 keypoints."""
+    dev, lead = levels[0].device, levels[0].shape[:-2]
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if not 1 <= len(levels) == len(budgets) <= kernel_build.MAX_LEVELS:
+        raise ValueError(f"{name}: takes 1 to {kernel_build.MAX_LEVELS} levels, "
+                         "each with its budget")
+    for lv in levels:
+        if (lv.device != dev or lv.dtype != torch.float32 or lv.dim() not in (2, 3)
+                or lv.shape[:-2] != lead or not lv.is_contiguous()):
+            raise ValueError(f"{name}: needs contiguous (H, W) or (B, H, W) float32 "
+                             "images with one leading shape on one CUDA device")
+        if min(lv.shape[-2:]) < min_side:
+            raise ValueError(f"{name}: image side below {min_side}")
+    if (xy_flat.device != dev or xy_flat.dtype != torch.float32 or not xy_flat.is_contiguous()
+            or tuple(xy_flat.shape) != (keypoint_starts(budgets, math.prod(lead))[-1], 2)):
+        raise ValueError(f"{name}: needs contiguous (sum B * n_l, 2) float32 keypoints")
 
 
 def ic_angle_levels(levels: list[torch.Tensor], xy_flat: torch.Tensor, budgets) -> torch.Tensor:
@@ -226,22 +271,8 @@ def ic_angle_levels(levels: list[torch.Tensor], xy_flat: torch.Tensor, budgets) 
     one launch of the CUDA kernel (counted) for every level and stream."""
     if levels[0].device.type == "cpu":
         return ic_angle_levels_plain(levels, xy_flat, budgets)
-    dev, lead = levels[0].device, levels[0].shape[:-2]
-    if dev.type != "cuda":
-        raise ValueError(f"ic_angle_levels: unsupported device {dev}")
-    if not 1 <= len(levels) == len(budgets) <= kernel_build.MAX_LEVELS:
-        raise ValueError(f"ic_angle_levels: takes 1 to {kernel_build.MAX_LEVELS} levels, "
-                         "each with its budget")
-    for lv in levels:
-        if (lv.device != dev or lv.dtype != torch.float32 or lv.dim() not in (2, 3)
-                or lv.shape[:-2] != lead or not lv.is_contiguous()):
-            raise ValueError("ic_angle_levels: needs contiguous (H, W) or (B, H, W) float32 "
-                             "images with one leading shape on one CUDA device")
-        if min(lv.shape[-2:]) < 2 * HALF_PATCH + 1:
-            raise ValueError("ic_angle_levels: image smaller than the 31x31 patch")
-    if (xy_flat.device != dev or xy_flat.dtype != torch.float32 or not xy_flat.is_contiguous()
-            or tuple(xy_flat.shape) != (keypoint_starts(budgets, math.prod(lead))[-1], 2)):
-        raise ValueError("ic_angle_levels: needs contiguous (sum B * n_l, 2) float32 keypoints")
+    _check_levels("ic_angle_levels", levels, xy_flat, budgets, 2 * HALF_PATCH + 1)
+    dev = levels[0].device
     out = torch.empty(xy_flat.shape[:1], dtype=torch.float32, device=dev)
     fn = kernel_build.kernel("ic_angle")
     err = fn(*kernel_args(levels, budgets), xy_flat.data_ptr(), out.data_ptr(),
@@ -300,35 +331,71 @@ def brief_descriptors_plain(
     return _pack_words(vals[..., 0] < vals[..., 1])
 
 
-def brief_descriptors(
-    blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor
-) -> torch.Tensor:
-    """Steered BRIEF of keypoints xy (N, 2) on an (H, W) image, or of
-    (B, N, 2) on a (B, H, W) stack: the plain version on the CPU, one
-    launch of the CUDA kernel (counted) for all B streams on the card.
-    Both take cos/sin of the angle from torch, so the two agree bit for
-    bit on the same device."""
-    if blurred.device.type == "cpu":
-        return brief_descriptors_plain(blurred, xy, angle)
-    b, n = _check_keypoint_batch("brief_descriptors", blurred, xy)
-    dev = blurred.device
-    if angle.device != dev or angle.dtype != torch.float32 or angle.shape != xy.shape[:-1]:
-        raise ValueError("brief_descriptors: needs (N,) or (B, N) float32 angles")
-    h, w = blurred.shape[-2:]
-    ca = torch.cos(angle).contiguous()
-    sa = torch.sin(angle).contiguous()
-    pattern = device_constant("PATTERN", dev)
-    out = torch.empty(xy.shape[:-1] + (8,), dtype=torch.int32, device=dev)
-    fn = kernel_build.kernel("brief")
-    err = fn(blurred.data_ptr(), xy.data_ptr(), ca.data_ptr(), sa.data_ptr(),
-             pattern.data_ptr(), out.data_ptr(), b, n, h, w,
-             torch.cuda.current_stream(dev).cuda_stream)
-    kernel_build.check_launch("brief", err)
-    brief_descriptors.launches += 1
+def brief_levels_plain(levels, xy_flat, angle_flat, budgets) -> torch.Tensor:
+    """The plain version per level: the integer-rounded blur of the level,
+    then ``brief_descriptors_plain``, filling the same level-major
+    layout."""
+    lead = levels[0].shape[:-2]
+    out = torch.empty(xy_flat.shape[:1] + (8,), dtype=torch.int32, device=xy_flat.device)
+    for desc, lv, xy, a in zip(level_keypoint_views(out, budgets, lead), levels,
+                               level_keypoint_views(xy_flat, budgets, lead),
+                               level_keypoint_views(angle_flat, budgets, lead)):
+        blurred = torch.round(image_ops.gaussian_blur(lv, BLUR_KSIZE, BLUR_SIGMA))
+        desc.copy_(brief_descriptors_plain(blurred, xy, a))
     return out
 
 
-brief_descriptors.launches = 0
+def brief_kernel_args(levels, budgets, threads: int = BRIEF_THREADS_PER_KEYPOINT) -> tuple:
+    """The level-table arguments of one csrc/brief.cu launch (host
+    arrays), to be followed by xy, cos, sin, pattern, words and the
+    stream; `threads` per keypoint picks the kernel's layout."""
+    weights = image_ops.gauss_kernel1d(BLUR_KSIZE, BLUR_SIGMA).tolist()
+    return (*_level_table(levels, budgets), kernel_build.c_array(ctypes.c_float, weights),
+            len(levels), BRIEF_SAMPLE_RADIUS, threads)
+
+
+def brief_levels(levels: list[torch.Tensor], xy_flat: torch.Tensor, angle_flat: torch.Tensor,
+                 budgets) -> torch.Tensor:
+    """Steered BRIEF of every level's keypoints on the integer-rounded blur
+    of the raw level images: levels, budgets and xy_flat as
+    ``ic_angle_levels`` takes them, angle_flat the (sum_l B * n_l,)
+    float32 angles in the same layout.  Returns the (sum_l B * n_l, 8)
+    int32 words, level-major, so each level's words are a contiguous
+    (B, n_l, 8) view.  The plain version on the CPU; on the card one
+    launch of the CUDA kernel (counted) for every level and stream, which
+    blurs each keypoint's window itself.  Both take cos/sin of the angles
+    from torch, so the two agree bit for bit on the same device."""
+    if levels[0].device.type == "cpu":
+        return brief_levels_plain(levels, xy_flat, angle_flat, budgets)
+    # the blur's reflect padding needs a side above its radius
+    _check_levels("brief_levels", levels, xy_flat, budgets, BLUR_KSIZE // 2 + 1)
+    dev = levels[0].device
+    if (angle_flat.device != dev or angle_flat.dtype != torch.float32
+            or not angle_flat.is_contiguous() or angle_flat.shape != xy_flat.shape[:1]):
+        raise ValueError("brief_levels: needs contiguous (sum B * n_l,) float32 angles")
+    ca = torch.cos(angle_flat)
+    sa = torch.sin(angle_flat)
+    out = torch.empty(xy_flat.shape[:1] + (8,), dtype=torch.int32, device=dev)
+    fn = kernel_build.kernel("brief")
+    err = fn(*brief_kernel_args(levels, budgets), xy_flat.data_ptr(), ca.data_ptr(),
+             sa.data_ptr(), device_constant("PATTERN", dev).data_ptr(), out.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kernel_build.check_launch("brief", err)
+    brief_levels.launches += 1
+    return out
+
+
+brief_levels.launches = 0
+
+
+def brief_level(level_img: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Steered BRIEF of keypoints xy (N, 2) with angles (N,) on the
+    integer-rounded blur of a raw (H, W) float32 level, or of (B, N, 2) on
+    a (B, H, W) stack (``brief_levels`` of one level): (..., N, 8) words."""
+    if level_img.device.type != "cpu":
+        _check_keypoint_batch("brief_level", level_img, xy)
+    words = brief_levels([level_img], xy.reshape(-1, 2), angle.reshape(-1), [xy.shape[-2]])
+    return words.view(xy.shape[:-1] + (8,))
 
 
 def unpack_descriptor_bits(desc: torch.Tensor) -> torch.Tensor:

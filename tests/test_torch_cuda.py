@@ -18,7 +18,7 @@ from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
 from manhattanslam_tpu_torch.io import trajectory as traj_io
-from manhattanslam_tpu_torch.ops import fast, image, orb
+from manhattanslam_tpu_torch.ops import fast, image, kernel_build, orb
 from manhattanslam_tpu_torch.parallel import mesh, replay
 from manhattanslam_tpu_torch.system import System
 
@@ -65,14 +65,26 @@ def test_ic_angle_kernel_within_tolerance(cuda, hw, n):
     assert float(d.abs().max()) < 1e-4
 
 
+def _blurred_brief(img, xy, angle):
+    """BRIEF's plain composition: the integer-rounded blur of the raw
+    image, then the steered samples."""
+    return orb.brief_descriptors_plain(torch.round(image.gaussian_blur(img, 7, 2.0)), xy, angle)
+
+
 @pytest.mark.parametrize("hw,n", [((480, 640), 217), ((134, 179), 60), ((40, 54), 7)])
 def test_brief_kernel_bit_exact(cuda, hw, n):
-    img = _image(*hw, seed=hw[1]).to(cuda)
+    """One level (the blur inside the kernel) against the plain
+    composition, on a raw image with fractional intensities."""
+    img = _image(*hw, seed=hw[1], integer=False).to(cuda)
     xy = _keypoints(*hw, n, seed=n + 1).to(cuda)
     angle = torch.from_numpy(
         np.random.default_rng(n).uniform(-math.pi, math.pi, n).astype(np.float32)
     ).to(cuda)
-    assert torch.equal(orb.brief_descriptors(img, xy, angle), orb.brief_descriptors_plain(img, xy, angle))
+    before = orb.brief_levels.launches
+    out = orb.brief_level(img, xy, angle)
+    torch.cuda.synchronize()
+    assert orb.brief_levels.launches == before + 1
+    assert torch.equal(out, _blurred_brief(img, xy, angle))
 
 
 def test_wrapper_checks_inputs(cuda):
@@ -83,7 +95,7 @@ def test_wrapper_checks_inputs(cuda):
 
 
 def _launches():
-    return fast.fast_score_levels.launches, orb.ic_angle_levels.launches, orb.brief_descriptors.launches
+    return fast.fast_score_levels.launches, orb.ic_angle_levels.launches, orb.brief_levels.launches
 
 
 def _small_cfg():
@@ -99,7 +111,7 @@ def _small_cfg():
 def _batched_inputs(kind, b, hw, n, seed):
     """A kernel's wrapper inputs for b streams, the wrapper, its plain
     version and the wrapper that counts the launch."""
-    imgs = torch.stack([_image(*hw, seed=seed + i, integer=kind != "fast") for i in range(b)])
+    imgs = torch.stack([_image(*hw, seed=seed + i, integer=kind == "ic_angle") for i in range(b)])
     if kind == "fast":
         return (imgs,), fast.fast_score_map, fast.fast_score_map_plain, fast.fast_score_levels
     xy = torch.stack([_keypoints(*hw, n, seed=seed + 10 + i) for i in range(b)])
@@ -107,8 +119,7 @@ def _batched_inputs(kind, b, hw, n, seed):
         return (imgs, xy), orb.ic_angle, orb.ic_angle_plain, orb.ic_angle_levels
     angle = torch.from_numpy(
         np.random.default_rng(seed).uniform(-math.pi, math.pi, (b, n)).astype(np.float32))
-    return ((imgs, xy, angle), orb.brief_descriptors, orb.brief_descriptors_plain,
-            orb.brief_descriptors)
+    return (imgs, xy, angle), orb.brief_level, _blurred_brief, orb.brief_levels
 
 
 @pytest.mark.parametrize("kind", ["fast", "ic_angle", "brief"])
@@ -193,6 +204,61 @@ def test_ic_levels_launch_within_tolerance_and_bitwise_across_launch_shapes(cuda
         assert torch.equal(single, torch.cat([v[i] for v in views])), i
 
 
+def _brief_keypoints(hw, n, seed):
+    """n keypoints of one image for BRIEF: rounded interior points, then a
+    sub-pixel one, the image's corners and (0, 0) padding slots, as the
+    extractor's invalid slots are."""
+    h, w = hw
+    xy = _keypoints(h, w, n, seed)
+    edge = torch.tensor([[w / 2 + 0.37, h / 2 - 0.61], [0, 0], [w - 1, 0], [0, h - 1],
+                         [w - 1, h - 1], [0, 0], [0, 0]], dtype=torch.float32)
+    m = min(n, len(edge))
+    xy[n - m:] = edge[:m]
+    return xy
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_brief_levels_launch_bit_exact_and_bitwise_across_launch_shapes(cuda, b):
+    """One launch for every level's keypoints at TUM1's 8 level shapes
+    (raw levels with fractional intensities, padding slots at (0, 0) and
+    keypoints on the border): equal to the plain version at every keypoint,
+    to one launch per level, to a launch over a subset of the levels, to
+    b single-image launches and to the kernel's other layout (a block of
+    128 threads per keypoint)."""
+    levels = [lv.to(cuda) for lv in _stacks(b, seed=11 * b, integer=False)]
+    xys = [torch.stack([_brief_keypoints(hw, n, seed=li * 10 + i) for i in range(b)]).to(cuda)
+           for li, (hw, n) in enumerate(zip(TUM1_SHAPES, TUM1_BUDGETS))]
+    xy_flat = torch.cat([xy.reshape(-1, 2) for xy in xys])
+    ang = torch.from_numpy(np.random.default_rng(b).uniform(
+        -math.pi, math.pi, xy_flat.shape[0]).astype(np.float32)).to(cuda)
+    before = orb.brief_levels.launches
+    words = orb.brief_levels(levels, xy_flat, ang, TUM1_BUDGETS)
+    torch.cuda.synchronize()
+    assert orb.brief_levels.launches == before + 1
+    assert words.shape == (xy_flat.shape[0], 8) and words.dtype == torch.int32
+    assert torch.equal(words, orb.brief_levels_plain(levels, xy_flat, ang, TUM1_BUDGETS))
+    views = orb.level_keypoint_views(words, TUM1_BUDGETS, (b,))
+    angles = orb.level_keypoint_views(ang, TUM1_BUDGETS, (b,))
+    for li, (lv, xy, a, v) in enumerate(zip(levels, xys, angles, views)):
+        assert torch.equal(v, orb.brief_level(lv, xy, a)), li
+    sub = slice(3, 7)
+    part = orb.brief_levels(levels[sub], torch.cat([xy.reshape(-1, 2) for xy in xys[sub]]),
+                            torch.cat([a.reshape(-1) for a in angles[sub]]), TUM1_BUDGETS[sub])
+    assert torch.equal(part, torch.cat([v.reshape(-1, 8) for v in views[sub]]))
+    for i in range(b if b > 1 else 0):
+        single = orb.brief_levels([lv[i] for lv in levels], torch.cat([xy[i] for xy in xys]),
+                                  torch.cat([a[i] for a in angles]), TUM1_BUDGETS)
+        assert torch.equal(single, torch.cat([v[i] for v in views])), i
+    other = torch.empty_like(words)
+    ca, sa = torch.cos(ang), torch.sin(ang)
+    err = kernel_build.kernel("brief")(
+        *orb.brief_kernel_args(levels, TUM1_BUDGETS, threads=128), xy_flat.data_ptr(),
+        ca.data_ptr(), sa.data_ptr(), orb.device_constant("PATTERN", cuda).data_ptr(),
+        other.data_ptr(), torch.cuda.current_stream(cuda).cuda_stream)
+    kernel_build.check_launch("brief", err)
+    assert torch.equal(other, words)
+
+
 def test_level_wrappers_check_inputs(cuda):
     imgs = [torch.zeros((2, 64, 64), device=cuda), torch.zeros((3, 50, 50), device=cuda)]
     with pytest.raises(ValueError):  # two leading shapes
@@ -201,14 +267,31 @@ def test_level_wrappers_check_inputs(cuda):
         fast.fast_score_levels([imgs[0]] * 9)
     with pytest.raises(ValueError):  # keypoints of another count than the budgets
         orb.ic_angle_levels([imgs[0]], torch.zeros((5, 2), device=cuda), [3])
+    xy, ang = torch.zeros((6, 2), device=cuda), torch.zeros(6, device=cuda)
+    with pytest.raises(ValueError):  # two leading shapes
+        orb.brief_levels(imgs, torch.zeros((12, 2), device=cuda), torch.zeros(12, device=cuda),
+                         [3, 2])
+    with pytest.raises(ValueError):  # more levels than the table holds
+        orb.brief_levels([imgs[0]] * 9, torch.zeros((54, 2), device=cuda),
+                         torch.zeros(54, device=cuda), [3] * 9)
+    with pytest.raises(ValueError):  # keypoints of another count than the budgets
+        orb.brief_levels([imgs[0]], xy, ang, [2])
+    with pytest.raises(ValueError):  # angles of another count than the keypoints
+        orb.brief_levels([imgs[0]], xy, ang[:5], [3])
+    with pytest.raises(ValueError):  # float64 angles
+        orb.brief_levels([imgs[0]], xy, ang.double(), [3])
+    with pytest.raises(ValueError):  # an image too small for the blur's border
+        orb.brief_levels([torch.zeros((3, 64), device=cuda)], xy[:3], ang[:3], [3])
+    with pytest.raises(ValueError):  # keypoints on the CPU
+        orb.brief_levels([imgs[0]], xy.cpu(), ang, [3])
 
 
 @pytest.mark.parametrize("b", [1, 2])
 def test_extractor_launches_fast_and_ic_angle_once_per_frame(cuda, b):
     """The extractor on the card at small_cfg size (its coarsest level is
     too small for the patch window and drops out of the level tables):
-    FAST and IC angle launched once per frame or batched step, BRIEF once
-    per active level, and the features those of one level at a time."""
+    FAST, IC angle and BRIEF each launched once per frame or batched step,
+    and the features those of one level at a time."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=3, cam=cfg.camera)
     gray = torch.stack([torch.from_numpy(seq.frame(i)[1]).round() for i in range(b)]).to(cuda)
@@ -219,7 +302,7 @@ def test_extractor_launches_fast_and_ic_angle_once_per_frame(cuda, b):
     before = _launches()
     feats = extract(gray, depth)
     torch.cuda.synchronize()
-    assert [a - c for a, c in zip(_launches(), before)] == [1, 1, len(active)]
+    assert [a - c for a, c in zip(_launches(), before)] == [1, 1, 1]
     ops = image.pyramid_operators(cfg.camera.height, cfg.camera.width, cfg.orb.n_levels,
                                   cfg.orb.scale_factor, cuda)
     levels = image.build_pyramid(gray, ops)
@@ -236,17 +319,14 @@ def test_replay_step_matches_single_stream_step(cuda):
     """The batched replay on the card, 3 streams at different frame offsets
     against the shared view of keyframe 0: each stream's pose within 1e-3 m
     and 1e-3 rad of the single-stream step on the same frame and carry,
-    every stream tracked, FAST and IC angle launched once per step and
-    BRIEF once per pyramid level per step whatever the number of streams."""
+    every stream tracked, FAST, IC angle and BRIEF each launched once per
+    step whatever the number of streams."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=30, cam=cfg.camera)
     first = [1, 4, 8]
     frames = [seq.frame(i) for i in range(max(first) + 3)]
     view, _ = replay.shared_view(cfg, frames[0], cuda)
     native = [dt.to_native(g, d) for _, g, d in frames]
-    shapes = image.pyramid_shapes(cfg.camera.height, cfg.camera.width, cfg.orb.n_levels,
-                                  cfg.orb.scale_factor)
-    per_step = sum(min(hw) >= 2 * orb.EDGE_THRESHOLD + 3 for hw in shapes)
     step = mesh.build_throughput_step(cfg, len(first), cuda)
     single = dt.build_frame_step(cfg, cuda)
     carry = replay.start_carry(cfg, seq, first, cuda)
@@ -254,7 +334,7 @@ def test_replay_step_matches_single_stream_step(cuda):
         g8, d16 = replay.step_frames(native, first, i, cuda)
         before = _launches()
         out, new_carry = step(g8, d16, carry, view)
-        assert [a - b for a, b in zip(_launches(), before)] == [1, 1, per_step]
+        assert [a - b for a, b in zip(_launches(), before)] == [1, 1, 1]
         assert bool(out["tracked_ok"].all()), i
         for s in range(len(first)):
             res, _ = single(g8[s], d16[s], {k: v[s] for k, v in carry.items()}, view)

@@ -1,12 +1,17 @@
-"""All-level kernel entry points (``fast_score_levels``, ``ic_angle_levels``)
-and the stage-ordered extractor, on the CPU at small_cfg size.
+"""All-level kernel entry points (``fast_score_levels``, ``ic_angle_levels``,
+``brief_levels``) and the stage-ordered extractor, on the CPU at small_cfg
+size.
 
 On the CPU the entry points run their plain versions, so FAST is compared
 exactly with the JAX reference (the jnp formulation and the Pallas kernel
-in interpret mode) and IC angle within 1e-4 rad (float32 moments in
-another order).  The level tables that the wrappers hand the CUDA kernels
-are built here in Python: each tile and keypoint must fall in exactly one
-slot.  The extractor must give what one level at a time gave before.
+in interpret mode), IC angle within 1e-4 rad (float32 moments in
+another order) and BRIEF words exactly wherever the two integer-rounded
+blurs agree at the keypoint's samples (XLA and torch sum the blur's
+float32 taps differently by ulps, which can move a pixel across .5).
+The level tables that the wrappers hand the CUDA kernels are built here
+in Python: each tile and keypoint must fall in exactly one slot; BRIEF's
+window radius and border map are checked against the pattern and
+``F.pad``.  The extractor must give what one level at a time gave before.
 """
 
 import re
@@ -16,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from manhattanslam_tpu.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu.ops import fast as jfast
@@ -197,10 +203,133 @@ def test_kernel_constants_match_the_wrappers():
         np.testing.assert_array_equal(col, np.abs(dy) <= porb.IC_ROW_EXTENT[abs(dx)])
 
 
+def _level_keypoints(cfg, levels, active):
+    """The extractor's keypoints and IC angles of every active level,
+    level-major: (budgets, per-level (xy, valid), xy_flat, angle_flat)."""
+    budgets = [cfg.orb.features_per_level()[li] for li in active]
+    kps = [pframe.keypoints_from_score(sc, n, cfg)
+           for sc, n in zip(pfast.fast_score_levels(levels), budgets)]
+    xy_flat = torch.cat([xy.reshape(-1, 2) for xy, _, _ in kps])
+    return budgets, [(xy, v) for xy, _, v in kps], xy_flat, porb.ic_angle_levels(
+        levels, xy_flat, budgets)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_brief_levels_equals_per_level_composition(rendered, b):
+    """One level-major call for every active level on the CPU: per level
+    the integer-rounded blur and brief_descriptors_plain, and the same as
+    the one-level form, in the (B, n_l, 8) view of each level."""
+    cfg, _, pyramids, active = rendered
+    levels = _stacked_levels(pyramids, active, b)
+    budgets, kps, xy_flat, ang = _level_keypoints(cfg, levels, active)
+    before = porb.brief_levels.launches
+    words = porb.brief_levels(levels, xy_flat, ang, budgets)
+    assert porb.brief_levels.launches == before  # the CPU launches nothing
+    assert words.shape == (xy_flat.shape[0], 8) and words.dtype == torch.int32
+    lead = (b,) if b > 1 else ()
+    for li, lv, (xy, _), a, d in zip(active, levels, kps,
+                                     porb.level_keypoint_views(ang, budgets, lead),
+                                     porb.level_keypoint_views(words, budgets, lead)):
+        assert d.is_contiguous() and d.shape == lead + (xy.shape[-2], 8)
+        blurred = torch.round(pimage.gaussian_blur(lv, 7, 2.0))
+        assert torch.equal(d, porb.brief_descriptors_plain(blurred, xy, a)), li
+        assert torch.equal(d, porb.brief_level(lv, xy, a)), li
+
+
+BLUR_TOL = 1e-3  # share of blurred pixels XLA and torch may round apart (test_torch_frame.py)
+
+
+def test_brief_levels_vs_reference(rendered):
+    """Every active level against the JAX reference's rounded blur and
+    brief_descriptors at the same keypoints and angles: equal words at
+    every keypoint whose sampled blurred pixels agree between the two
+    blurs.  The blurs themselves differ by at most 1 at under 1e-3 of the
+    pixels (ulps of float32 tap sums); keypoints whose samples touch such
+    a pixel are counted in the message, not compared, and are under a
+    tenth of them."""
+    cfg, _, pyramids, active = rendered
+    levels = _stacked_levels(pyramids, active, 1)
+    budgets, kps, xy_flat, ang = _level_keypoints(cfg, levels, active)
+    words = porb.brief_levels(levels, xy_flat, ang, budgets)
+    compared = skipped = 0
+    for li, lv, (xy, _), a, d in zip(active, levels, kps, porb.level_keypoint_views(ang, budgets, ()),
+                                     porb.level_keypoint_views(words, budgets, ())):
+        ref_blur = np.round(np.asarray(jimage.gaussian_blur(jnp.asarray(lv.numpy()), 7, 2.0)))
+        ref = np.asarray(jorb.brief_descriptors(jnp.asarray(ref_blur), jnp.asarray(xy.numpy()),
+                                                jnp.asarray(a.numpy())))
+        blurred = torch.round(pimage.gaussian_blur(lv, 7, 2.0)).numpy()
+        moved = blurred != ref_blur
+        assert np.abs(blurred - ref_blur).max() <= 1.0 and moved.mean() < BLUR_TOL, li
+        h, w = lv.shape
+        idx = porb.brief_sample_index(xy, torch.cos(a), torch.sin(a), h, w).numpy()
+        touched = moved.reshape(-1)[idx].any(axis=(-2, -1))
+        np.testing.assert_array_equal(d.numpy().view(np.uint32)[~touched], ref[~touched],
+                                      err_msg=f"level {li}")
+        compared += int((~touched).sum())
+        skipped += int(touched.sum())
+    assert compared >= 0.9 * (compared + skipped), (
+        f"{skipped} keypoints sample a pixel the two blurs round apart, {compared} compared")
+
+
+def _kernel_sample_offsets(xy, angle):
+    """Each rotated, rounded sample of PATTERN minus the floor of its
+    keypoint, in the arithmetic of brief_sample_index without the clip:
+    (N, 256, 2, 2) as (x, y)."""
+    pat = torch.from_numpy(porb.PATTERN).float()
+    py, px = pat[..., 0], pat[..., 1]
+    c, s = torch.cos(angle)[:, None, None], torch.sin(angle)[:, None, None]
+    sx = torch.round(xy[:, 0, None, None] + (px * c - py * s)) - torch.floor(xy[:, 0, None, None])
+    sy = torch.round(xy[:, 1, None, None] + (px * s + py * c)) - torch.floor(xy[:, 1, None, None])
+    return torch.stack([sx, sy], -1)
+
+
+def test_brief_samples_lie_within_the_kernel_window():
+    """At 4096 angles and sub-pixel keypoints every sample lies within
+    BRIEF_SAMPLE_RADIUS (14) of the keypoint's floor, the window that
+    csrc/brief.cu blurs; at integer keypoints 13 is reached."""
+    n = 4096
+    angle = torch.linspace(-np.pi, np.pi, n + 1)[:-1]
+    rng = np.random.default_rng(4)
+    for frac in (np.zeros((n, 2)), rng.uniform(0, 1, (n, 2)), np.full((n, 2), 0.5),
+                 np.full((n, 2), 0.999)):
+        xy = torch.from_numpy((np.float32(200.0) + frac).astype(np.float32))
+        off = _kernel_sample_offsets(xy, angle).abs().max()
+        assert off <= porb.BRIEF_SAMPLE_RADIUS, frac[0]
+    assert porb.BRIEF_SAMPLE_RADIUS == 14
+    assert _kernel_sample_offsets(torch.full((n, 2), 200.0), angle).abs().max() == 13
+
+
+def _reflect101(i, n):
+    """csrc/brief.cu reflect101, as written there."""
+    i = -i if i < 0 else i
+    i = 2 * (n - 1) - i if i >= n else i
+    return min(max(i, 0), n - 1)
+
+
+@pytest.mark.parametrize("n", [4, 5, 9, 31])
+def test_reflect101_index_map_equals_f_pad(n):
+    """The kernel's border map at the blur's radius equals F.pad(mode=
+    "reflect") of a row of n pixels, on both sides."""
+    r = porb.BLUR_KSIZE // 2
+    row = torch.arange(n, dtype=torch.float32).reshape(1, 1, 1, n)
+    padded = F.pad(row, (r, r, 0, 0), mode="reflect").reshape(-1).tolist()
+    assert [_reflect101(i, n) for i in range(-r, n + r)] == padded
+
+
+def test_brief_kernel_constants_match_the_wrapper():
+    """csrc/brief.cu's window and tap constants are the Python side's."""
+    src = (CSRC / "brief.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kSampleR"] == porb.BRIEF_SAMPLE_RADIUS
+    assert const["kTaps"] == porb.BLUR_KSIZE == len(pimage.gauss_kernel1d(7, 2.0))
+    assert const["kMaxLevels"] == kernel_build.MAX_LEVELS
+    assert porb.BRIEF_THREADS_PER_KEYPOINT in (32, const["kBlock"])
+
+
 def _per_level_composition(level_img, n_out, cfg):
     """One level at a time, as the extractor composed it before the
-    all-level launches: FAST corners, border, grid top-K, IC angle, rounded
-    blur and BRIEF."""
+    all-level launches, from the plain functions: FAST corners, border,
+    grid top-K, IC angle, rounded blur and BRIEF."""
     h, w = level_img.shape[-2:]
     lead = level_img.shape[:-2]
     if min(h, w) < 2 * porb.EDGE_THRESHOLD + 3:
@@ -215,9 +344,9 @@ def _per_level_composition(level_img, n_out, cfg):
     inner[..., e:h - e, e:w - e] = score[..., e:h - e, e:w - e]
     k_per_cell = max(2, min(8, (4 * n_out) // max((h // 32) * (w // 32), 1) + 1))
     xy, resp, valid = porb.select_grid_topk(inner, n_out, cell=32, k_per_cell=k_per_cell)
-    angle = porb.ic_angle(level_img, xy)
+    angle = porb.ic_angle_plain(level_img, xy)
     blurred = torch.round(pimage.gaussian_blur(level_img, 7, 2.0))
-    desc = porb.brief_descriptors(blurred, xy, angle)
+    desc = porb.brief_descriptors_plain(blurred, xy, angle)
     return {"xy": xy, "response": resp, "valid": valid, "angle": angle, "desc": desc}
 
 

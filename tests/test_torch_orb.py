@@ -13,6 +13,7 @@ import torch
 from manhattanslam_tpu.ops import orb as jorb
 from manhattanslam_tpu.ops.orb_pallas import brief_descriptors_pallas, ic_angle_pallas
 from manhattanslam_tpu_torch import convert
+from manhattanslam_tpu_torch.ops import image as pimage
 from manhattanslam_tpu_torch.ops import orb as porb
 
 ANGLE_TOL = 1e-4
@@ -114,7 +115,8 @@ def test_brief_border_keypoints():
     xy = np.float32([[b, b], [w - b - 1, h - b - 1], [b, h - b - 1], [w - b - 1, b], [w / 2, h / 2]])
     angle = np.float32([0.3, -2.0, 1.4, 3.0, -0.7])
     ref = np.asarray(jorb.brief_descriptors(jnp.asarray(img), jnp.asarray(xy), jnp.asarray(angle)))
-    out = porb.brief_descriptors(torch.from_numpy(img), torch.from_numpy(xy), torch.from_numpy(angle))
+    out = porb.brief_descriptors_plain(
+        torch.from_numpy(img), torch.from_numpy(xy), torch.from_numpy(angle))
     np.testing.assert_array_equal(out.numpy().view(np.uint32), ref)
 
 
@@ -127,13 +129,14 @@ def test_unpack_descriptor_bits_equal():
 
 
 def test_wrappers_run_plain_versions_on_cpu():
+    """On CPU tensors the one-level wrappers are their plain versions (BRIEF
+    on the integer-rounded blur of the raw level) and count no launch."""
     rng = np.random.default_rng(9)
     img = torch.from_numpy(rng.integers(0, 256, (80, 120)).astype(np.float32))
     xy = torch.from_numpy(_keypoints(rng, 80, 120, 10))
-    before = (porb.ic_angle_levels.launches, porb.brief_descriptors.launches)
+    before = (porb.ic_angle_levels.launches, porb.brief_levels.launches)
     ang = porb.ic_angle(img, xy)
     assert torch.equal(ang, porb.ic_angle_plain(img, xy))
-    assert torch.equal(
-        porb.brief_descriptors(img, xy, ang), porb.brief_descriptors_plain(img, xy, ang)
-    )
-    assert (porb.ic_angle_levels.launches, porb.brief_descriptors.launches) == before
+    blurred = torch.round(pimage.gaussian_blur(img, porb.BLUR_KSIZE, porb.BLUR_SIGMA))
+    assert torch.equal(porb.brief_level(img, xy, ang), porb.brief_descriptors_plain(blurred, xy, ang))
+    assert (porb.ic_angle_levels.launches, porb.brief_levels.launches) == before

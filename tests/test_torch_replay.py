@@ -108,21 +108,22 @@ def test_batched_plain_vs_pallas_twin_and_single_calls(case):
 
 
 def test_batched_wrappers_run_plain_versions_on_cpu():
-    """On CPU tensors a batched wrapper call is its plain version and
-    counts no launch."""
+    """On CPU tensors a batched wrapper call is its plain version (BRIEF on
+    the integer-rounded blur of the raw images) and counts no launch."""
     rng = np.random.default_rng(3)
     imgs = torch.from_numpy(rng.integers(0, 256, (2, 64, 96)).astype(np.float32))
     xy = torch.from_numpy(_batched_keypoints(rng, 2, 64, 96, 9))
     angle = torch.from_numpy(rng.uniform(-3, 3, (2, 9)).astype(np.float32))
     before = (pfast.fast_score_levels.launches, porb.ic_angle_levels.launches,
-              porb.brief_descriptors.launches)
+              porb.brief_levels.launches)
     assert torch.equal(pfast.fast_score_map(imgs), pfast.fast_score_map_plain(imgs))
     assert torch.equal(porb.ic_angle(imgs, xy), porb.ic_angle_plain(imgs, xy))
+    blurred = torch.round(pimage.gaussian_blur(imgs, porb.BLUR_KSIZE, porb.BLUR_SIGMA))
     assert torch.equal(
-        porb.brief_descriptors(imgs, xy, angle), porb.brief_descriptors_plain(imgs, xy, angle)
+        porb.brief_level(imgs, xy, angle), porb.brief_descriptors_plain(blurred, xy, angle)
     )
     after = (pfast.fast_score_levels.launches, porb.ic_angle_levels.launches,
-             porb.brief_descriptors.launches)
+             porb.brief_levels.launches)
     assert after == before
 
 
@@ -241,9 +242,9 @@ def test_batched_entry_at_b1_equals_single_body(replay):
 
 @pytest.mark.parametrize("batch", [1, 2])
 def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, batch):
-    """Whatever the number of streams, the FAST and IC angle wrappers are
-    called once per step for all pyramid levels, and BRIEF's once per
-    level (that is large enough for the patch window) per step."""
+    """Whatever the number of streams, the FAST, IC angle and BRIEF
+    wrappers are each called once per step for all pyramid levels (that
+    are large enough for the patch window)."""
     pcfg, _, native, _, view, T0, _ = replay
     calls = {}
 
@@ -258,10 +259,7 @@ def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, bat
 
     spy(pfast, "fast_score_levels")
     spy(porb, "ic_angle_levels")
-    spy(porb, "brief_descriptors")
-    shapes = pimage.pyramid_shapes(pcfg.camera.height, pcfg.camera.width, pcfg.orb.n_levels,
-                                   pcfg.orb.scale_factor)
-    n_active = sum(min(s) >= 2 * porb.EDGE_THRESHOLD + 3 for s in shapes)
+    spy(porb, "brief_levels")
     step = pmesh.build_throughput_step(pcfg, batch, CPU)
     carry = pmesh.init_batched_carry(pcfg, batch, CPU)
     first = [OFFSETS[0] + s for s in range(batch)]
@@ -269,7 +267,7 @@ def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, bat
     for i in range(n_steps):
         step(*preplay.step_frames(native, first, i, CPU), carry, view)
     assert calls == {"fast_score_levels": n_steps, "ic_angle_levels": n_steps,
-                     "brief_descriptors": n_steps * n_active}
+                     "brief_levels": n_steps}
 
 
 def test_throughput_step_rejects_wrong_frames(small_cfg):
