@@ -23,24 +23,32 @@
 // Bound on the H100: per keypoint 256 pairs of ~29 float ops, 32 bytes
 // out, and the blur of the pixels its samples touch (26 ops each, from
 // the raw pixels within 3 of them); a frame's ~1000 keypoints read under
-// a megabyte, so the launch's fixed cost and the blur's arithmetic set
+// a megabyte, so the launch's fixed cost, the latency of its dependent
+// phases and the blur's arithmetic (products and sums apart, no FMA) set
 // its time.  Design:
 // - Keypoints are level-major, [level][stream][n_l], as csrc/ic_angle.cu
 //   takes them: keypoint k's level follows from the prefix of batch * n_l
 //   in one by-value __grid_constant__ table that also holds each level's
 //   image pointer, h and w, and the 7 blur weights (no upload, capturable
 //   in a CUDA graph).
-// - One warp per keypoint (kThreads = 32; a block of 128 threads per
-//   keypoint is the other layout, chosen at the entry point): it stages
-//   the keypoint's raw 35x35 window (sample radius 14 plus the blur's 3)
-//   into shared memory with reflect-101 indices, runs the vertical pass
-//   into a 29x35 buffer and the horizontal pass, rounded, back into the
-//   first buffer (29x29), so the blurred pixels never leave shared
-//   memory and no pixel of the level is blurred that no sample reads.
-// - Lane j takes pair 32i+j of word i (pattern rows by __ldg from
-//   global memory as one 16-byte load: the 32 lanes read 32 entries, which
-//   __constant__ memory would serialize), and __ballot_sync packs the 32
-//   comparisons into the word.
+// - One block of 128 threads per keypoint (kThreads = 128; one warp per
+//   keypoint, 4 to a block, is the other layout, chosen at the entry
+//   point).  The blurred window is the 29x29 pixels within the sample
+//   radius 14 of the keypoint's floor; it is computed padded to 30 rows
+//   and 32 columns (the padding reads mapped pixels and is never sampled):
+//   1. vertical pass from global memory into registers: each thread takes
+//      one of 38 columns and one of 3 bands of 10 output rows, loads the
+//      band's 16 raw rows with reflect-101 indices (neighbouring threads
+//      read neighbouring columns) and writes 10 sums to shared memory;
+//   2. horizontal pass: each thread takes one of 30 rows and one of 4
+//      runs of 8 columns, reads 14 vertical sums and writes 8 rounded
+//      pixels (row strides 39 and 33 keep the banks at most 2-way);
+//   3. lane j of warp i takes pair 32i+j of word i (and i+4): pattern rows
+//      by __ldg from global memory as one 16-byte load (the 32 lanes read
+//      32 entries, which __constant__ memory would serialize), samples
+//      from shared memory, and __ballot_sync packs the 32 comparisons.
+//   So no pixel of the level is blurred that no sample is near, and the
+//   blurred pixels never leave shared memory.
 // - The window is centred on the keypoint's floor, clamped to the image:
 //   every clipped sample then lies within kSampleR of it (a clip moves a
 //   sample toward the image, which holds the centre).  A keypoint's words
@@ -53,13 +61,18 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kTaps = 7;                      // blur taps
-constexpr int kBlurR = kTaps / 2;             // 3
-constexpr int kSampleR = 14;                  // ops/orb.py BRIEF_SAMPLE_RADIUS
-constexpr int kWinR = kSampleR + kBlurR;      // 17: raw window radius
-constexpr int kWin = 2 * kWinR + 1;           // 35
-constexpr int kOut = 2 * kSampleR + 1;        // 29: blurred window
-constexpr int kBlock = 128;                   // threads per block
+constexpr int kTaps = 7;                  // blur taps
+constexpr int kBlurR = kTaps / 2;         // 3
+constexpr int kSampleR = 14;              // ops/orb.py BRIEF_SAMPLE_RADIUS
+constexpr int kWinR = kSampleR + kBlurR;  // 17: raw window radius
+constexpr int kBand = 10;                 // vertical pass: output rows per thread
+constexpr int kRows = 30;                 // blurred rows, 2 * kSampleR + 1 padded to 3 bands
+constexpr int kRun = 8;                   // horizontal pass: output columns per thread
+constexpr int kCols = 32;                 // blurred columns, 2 * kSampleR + 1 padded to 4 runs
+constexpr int kVCols = kCols + 2 * kBlurR;  // 38 columns of vertical sums
+constexpr int kVStride = kVCols + 1;      // 39: odd, so 30 rows fall in 30 banks
+constexpr int kBStride = kCols + 1;       // 33
+constexpr int kBlock = 128;               // threads per block
 
 struct BriefTable {
   const float* img[kMaxLevels];  // (batch, h, w) per level, raw intensities
@@ -95,8 +108,8 @@ brief_levels_kernel(const __grid_constant__ BriefTable t, const float* __restric
                     const float* __restrict__ cosa, const float* __restrict__ sina,
                     const int4* __restrict__ pattern, int* __restrict__ desc) {
   constexpr int kGroups = kBlock / kThreads;  // keypoints per block
-  __shared__ float win[kGroups][kWin * kWin];   // raw, then the rounded blur
-  __shared__ float vert[kGroups][kOut * kWin];  // the vertical pass
+  __shared__ float vert[kGroups][kRows * kVStride];  // vertical sums
+  __shared__ float blur[kGroups][kRows * kBStride];  // the rounded blur
   const int g = threadIdx.x / kThreads;
   const int tid = threadIdx.x % kThreads;
   const int k = blockIdx.x * kGroups + g;
@@ -113,29 +126,44 @@ brief_levels_kernel(const __grid_constant__ BriefTable t, const float* __restric
   const float ky = xy[2 * k + 1];
   const int cx = min(max(static_cast<int>(floorf(kx)), 0), w - 1);
   const int cy = min(max(static_cast<int>(floorf(ky)), 0), h - 1);
-  float* raw = win[g];
   float* vb = vert[g];
+  float* bl = blur[g];
 
-  for (int i = tid; i < kWin * kWin; i += kThreads) {
-    const int r = reflect101(cy - kWinR + i / kWin, h);
-    const int c = reflect101(cx - kWinR + i % kWin, w);
-    raw[i] = __ldg(img + static_cast<size_t>(r) * w + c);
+  // vertical sums: vb[r][c] at image row cy - kSampleR + r, column
+  // cx - kWinR + c
+  for (int task = tid; task < kVCols * (kRows / kBand); task += kThreads) {
+    const int c = task % kVCols;
+    const int r0 = (task / kVCols) * kBand;
+    const float* col = img + reflect101(cx - kWinR + c, w);
+    float x[kBand + kTaps - 1];
+#pragma unroll
+    for (int i = 0; i < kBand + kTaps - 1; ++i) {
+      x[i] = __ldg(col + static_cast<size_t>(reflect101(cy - kWinR + r0 + i, h)) * w);
+    }
+#pragma unroll
+    for (int i = 0; i < kBand; ++i) {
+      float acc = __fmul_rn(t.weight[0], x[i]);
+#pragma unroll
+      for (int j = 1; j < kTaps; ++j) acc = __fadd_rn(acc, __fmul_rn(t.weight[j], x[i + j]));
+      vb[(r0 + i) * kVStride + c] = acc;
+    }
   }
   sync_group<kThreads>();
-  for (int i = tid; i < kOut * kWin; i += kThreads) {
-    const float* col = raw + i;  // row i / kWin of the output, taps below
-    float acc = __fmul_rn(t.weight[0], col[0]);
+  // rounded blur: bl[r][c] at image row cy - kSampleR + r, column
+  // cx - kSampleR + c
+  for (int task = tid; task < kRows * (kCols / kRun); task += kThreads) {
+    const int r = task % kRows;
+    const int c0 = (task / kRows) * kRun;
+    float v[kRun + kTaps - 1];
 #pragma unroll
-    for (int j = 1; j < kTaps; ++j) acc = __fadd_rn(acc, __fmul_rn(t.weight[j], col[j * kWin]));
-    vb[i] = acc;
-  }
-  sync_group<kThreads>();
-  for (int i = tid; i < kOut * kOut; i += kThreads) {
-    const float* row = vb + (i / kOut) * kWin + i % kOut;
-    float acc = __fmul_rn(t.weight[0], row[0]);
+    for (int i = 0; i < kRun + kTaps - 1; ++i) v[i] = vb[r * kVStride + c0 + i];
 #pragma unroll
-    for (int j = 1; j < kTaps; ++j) acc = __fadd_rn(acc, __fmul_rn(t.weight[j], row[j]));
-    raw[i] = rintf(acc);  // raw window no longer read
+    for (int i = 0; i < kRun; ++i) {
+      float acc = __fmul_rn(t.weight[0], v[i]);
+#pragma unroll
+      for (int j = 1; j < kTaps; ++j) acc = __fadd_rn(acc, __fmul_rn(t.weight[j], v[i + j]));
+      bl[r * kBStride + c0 + i] = rintf(acc);
+    }
   }
   sync_group<kThreads>();
 
@@ -153,9 +181,9 @@ brief_levels_kernel(const __grid_constant__ BriefTable t, const float* __restric
     const float sy = fminf(fmaxf(rintf(__fadd_rn(ky, ry)), 0.f), y_max);
     // within kSampleR of the centre for any finite keypoint; the clamp
     // only keeps a non-finite one inside the window
-    const int wx = min(max(static_cast<int>(sx) - cx + kSampleR, 0), kOut - 1);
-    const int wy = min(max(static_cast<int>(sy) - cy + kSampleR, 0), kOut - 1);
-    return raw[wy * kOut + wx];
+    const int wx = min(max(static_cast<int>(sx) - cx + kSampleR, 0), 2 * kSampleR);
+    const int wy = min(max(static_cast<int>(sy) - cy + kSampleR, 0), 2 * kSampleR);
+    return bl[wy * kBStride + wx];
   };
 #pragma unroll
   for (int word = tid >> 5; word < 8; word += kThreads / 32) {

@@ -64,7 +64,7 @@ BRIEF_SAMPLE_RADIUS = int(np.floor(np.sqrt((PATTERN.astype(np.float64) ** 2).sum
 BLUR_KSIZE = 7
 BLUR_SIGMA = 2.0
 # csrc/brief.cu layout: 32 = one warp per keypoint, 128 = one block
-BRIEF_THREADS_PER_KEYPOINT = 32
+BRIEF_THREADS_PER_KEYPOINT = 128
 
 
 def _circular_umax(radius: int = HALF_PATCH) -> np.ndarray:

@@ -223,8 +223,8 @@ def test_brief_levels_launch_bit_exact_and_bitwise_across_launch_shapes(cuda, b)
     (raw levels with fractional intensities, padding slots at (0, 0) and
     keypoints on the border): equal to the plain version at every keypoint,
     to one launch per level, to a launch over a subset of the levels, to
-    b single-image launches and to the kernel's other layout (a block of
-    128 threads per keypoint)."""
+    b single-image launches and to the kernel's other thread layout (a
+    warp or a block per keypoint)."""
     levels = [lv.to(cuda) for lv in _stacks(b, seed=11 * b, integer=False)]
     xys = [torch.stack([_brief_keypoints(hw, n, seed=li * 10 + i) for i in range(b)]).to(cuda)
            for li, (hw, n) in enumerate(zip(TUM1_SHAPES, TUM1_BUDGETS))]
@@ -250,9 +250,10 @@ def test_brief_levels_launch_bit_exact_and_bitwise_across_launch_shapes(cuda, b)
                                   torch.cat([a[i] for a in angles]), TUM1_BUDGETS)
         assert torch.equal(single, torch.cat([v[i] for v in views])), i
     other = torch.empty_like(words)
+    threads = 32 if orb.BRIEF_THREADS_PER_KEYPOINT == 128 else 128
     ca, sa = torch.cos(ang), torch.sin(ang)
     err = kernel_build.kernel("brief")(
-        *orb.brief_kernel_args(levels, TUM1_BUDGETS, threads=128), xy_flat.data_ptr(),
+        *orb.brief_kernel_args(levels, TUM1_BUDGETS, threads=threads), xy_flat.data_ptr(),
         ca.data_ptr(), sa.data_ptr(), orb.device_constant("PATTERN", cuda).data_ptr(),
         other.data_ptr(), torch.cuda.current_stream(cuda).cuda_stream)
     kernel_build.check_launch("brief", err)

@@ -317,10 +317,15 @@ def test_reflect101_index_map_equals_f_pad(n):
 
 
 def test_brief_kernel_constants_match_the_wrapper():
-    """csrc/brief.cu's window and tap constants are the Python side's."""
+    """csrc/brief.cu's window and tap constants are the Python side's, and
+    its padded blurred window (bands of rows, runs of columns) covers the
+    29x29 pixels within the sample radius."""
     src = (CSRC / "brief.cu").read_text()
     const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert const["kSampleR"] == porb.BRIEF_SAMPLE_RADIUS
+    for size, part in (("kRows", "kBand"), ("kCols", "kRun")):
+        assert const[size] % const[part] == 0
+        assert 2 * porb.BRIEF_SAMPLE_RADIUS + 1 <= const[size] < 2 * porb.BRIEF_SAMPLE_RADIUS + 1 + const[part]
     assert const["kTaps"] == porb.BLUR_KSIZE == len(pimage.gauss_kernel1d(7, 2.0))
     assert const["kMaxLevels"] == kernel_build.MAX_LEVELS
     assert porb.BRIEF_THREADS_PER_KEYPOINT in (32, const["kBlock"])
