@@ -38,8 +38,10 @@
 //   and 32 columns (the padding reads mapped pixels and is never sampled):
 //   1. vertical pass from global memory into registers: each thread takes
 //      one of 38 columns and one of 3 bands of 10 output rows, loads the
-//      band's 16 raw rows with reflect-101 indices (neighbouring threads
-//      read neighbouring columns) and writes 10 sums to shared memory;
+//      band's 16 raw rows (neighbouring threads read neighbouring
+//      columns; reflect-101 indices only for a window that crosses the
+//      border, where the index arithmetic doubles the pass's
+//      instructions) and writes 10 sums to shared memory;
 //   2. horizontal pass: each thread takes one of 30 rows and one of 4
 //      runs of 8 columns, reads 14 vertical sums and writes 8 rounded
 //      pixels (row strides 39 and 33 keep the banks at most 2-way);
@@ -130,15 +132,24 @@ brief_levels_kernel(const __grid_constant__ BriefTable t, const float* __restric
   float* bl = blur[g];
 
   // vertical sums: vb[r][c] at image row cy - kSampleR + r, column
-  // cx - kWinR + c
+  // cx - kWinR + c; a window inside the image (every valid keypoint's
+  // but near the right border) needs no reflection
+  const bool inside = cy >= kWinR && cy - kWinR + kRows + 2 * kBlurR <= h && cx >= kWinR &&
+                      cx - kWinR + kVCols <= w;
   for (int task = tid; task < kVCols * (kRows / kBand); task += kThreads) {
     const int c = task % kVCols;
     const int r0 = (task / kVCols) * kBand;
-    const float* col = img + reflect101(cx - kWinR + c, w);
     float x[kBand + kTaps - 1];
+    if (inside) {
+      const float* p = img + static_cast<size_t>(cy - kWinR + r0) * w + cx - kWinR + c;
 #pragma unroll
-    for (int i = 0; i < kBand + kTaps - 1; ++i) {
-      x[i] = __ldg(col + static_cast<size_t>(reflect101(cy - kWinR + r0 + i, h)) * w);
+      for (int i = 0; i < kBand + kTaps - 1; ++i) x[i] = __ldg(p + static_cast<size_t>(i) * w);
+    } else {
+      const float* col = img + reflect101(cx - kWinR + c, w);
+#pragma unroll
+      for (int i = 0; i < kBand + kTaps - 1; ++i) {
+        x[i] = __ldg(col + static_cast<size_t>(reflect101(cy - kWinR + r0 + i, h)) * w);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kBand; ++i) {
