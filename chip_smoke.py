@@ -315,7 +315,8 @@ def _measure_levels(cfg, dev, imgs: torch.Tensor, stats: dict, names: tuple) -> 
     # BRIEF: one launch for all levels, the blur inside, bit-exact with the
     # plain version (blur, round, samples) from the kernel's angles, and
     # bitwise equal to one launch per level, to B single-image launches and
-    # to the kernel's other layout (a block per keypoint)
+    # in both thread layouts (a warp or a block per keypoint); `ms` and
+    # `device_ms` time the kernel alone, without the wrapper's cos/sin
     words = orb_ops.brief_levels(levels, xy_flat, ang, budgets)
     bad = int((words != orb_ops.brief_levels_plain(levels, xy_flat, ang, budgets)).any(-1).sum())
     check(bad == 0, f"{names[2]}: {bad} keypoints differ from the plain version")
@@ -343,7 +344,7 @@ def _measure_levels(cfg, dev, imgs: torch.Tensor, stats: dict, names: tuple) -> 
     for threads in layouts:
         brief_launcher(threads)(stream)
         check(torch.equal(words_out, words), f"{names[2]}: layout of {threads} threads differs")
-    brief_launch = brief_launcher(orb_ops.BRIEF_THREADS_PER_KEYPOINT)
+    brief_launch = brief_launcher(orb_ops.brief_threads(b))
     st_brief["ms"] += median_ms(lambda: brief_launch(stream))
     st_brief["device_ms"] += graph_ms(brief_launch)
     st_brief["plain_ms"] += median_ms(

@@ -31,24 +31,28 @@
 //   in one by-value __grid_constant__ table that also holds each level's
 //   image pointer, h and w, and the 7 blur weights (no upload, capturable
 //   in a CUDA graph).
-// - One block of 128 threads per keypoint (kThreads = 128; one warp per
-//   keypoint, 4 to a block, is the other layout, chosen at the entry
-//   point).  The blurred window is the 29x29 pixels within the sample
-//   radius 14 of the keypoint's floor; it is computed padded to 30 rows
-//   and 32 columns (the padding reads mapped pixels and is never sampled):
-//   1. vertical pass from global memory into registers: each thread takes
+// - kThreads per keypoint, chosen by the caller (ops/orb.py
+//   brief_threads): a block of 128 for one stream's ~1000 keypoints,
+//   which leave most of the card idle, so a keypoint's shorter chain
+//   wins; one warp, four keypoints to a block, for B streams, which fill
+//   it.  The blurred window is the 29x29 pixels within the sample radius
+//   14 of the keypoint's floor; it is computed padded to 30 rows and 32
+//   columns (the padding reads mapped pixels and is never sampled), in
+//   tasks that the keypoint's threads take in turn:
+//   1. vertical pass from global memory into registers: each task takes
 //      one of 38 columns and one of 3 bands of 10 output rows, loads the
 //      band's 16 raw rows (neighbouring threads read neighbouring
 //      columns; reflect-101 indices only for a window that crosses the
 //      border, where the index arithmetic doubles the pass's
 //      instructions) and writes 10 sums to shared memory;
-//   2. horizontal pass: each thread takes one of 30 rows and one of 4
+//   2. horizontal pass: each task takes one of 30 rows and one of 4
 //      runs of 8 columns, reads 14 vertical sums and writes 8 rounded
 //      pixels (row strides 39 and 33 keep the banks at most 2-way);
-//   3. lane j of warp i takes pair 32i+j of word i (and i+4): pattern rows
-//      by __ldg from global memory as one 16-byte load (the 32 lanes read
-//      32 entries, which __constant__ memory would serialize), samples
-//      from shared memory, and __ballot_sync packs the 32 comparisons.
+//   3. the keypoint's warps take the 8 words in turn, lane j pair 32i+j
+//      of word i: its pattern row by __ldg from global memory as one
+//      16-byte load (the 32 lanes read 32 entries, which __constant__
+//      memory would serialize), its two samples from shared memory, and
+//      __ballot_sync packs the 32 comparisons into the word.
 //   So no pixel of the level is blurred that no sample is near, and the
 //   blurred pixels never leave shared memory.
 // - The window is centred on the keypoint's floor, clamped to the image:
@@ -67,9 +71,9 @@ constexpr int kTaps = 7;                  // blur taps
 constexpr int kBlurR = kTaps / 2;         // 3
 constexpr int kSampleR = 14;              // ops/orb.py BRIEF_SAMPLE_RADIUS
 constexpr int kWinR = kSampleR + kBlurR;  // 17: raw window radius
-constexpr int kBand = 10;                 // vertical pass: output rows per thread
+constexpr int kBand = 10;                 // vertical pass: output rows per task
 constexpr int kRows = 30;                 // blurred rows, 2 * kSampleR + 1 padded to 3 bands
-constexpr int kRun = 8;                   // horizontal pass: output columns per thread
+constexpr int kRun = 8;                   // horizontal pass: output columns per task
 constexpr int kCols = 32;                 // blurred columns, 2 * kSampleR + 1 padded to 4 runs
 constexpr int kVCols = kCols + 2 * kBlurR;  // 38 columns of vertical sums
 constexpr int kVStride = kVCols + 1;      // 39: odd, so 30 rows fall in 30 banks

@@ -63,8 +63,6 @@ BRIEF_SAMPLE_RADIUS = int(np.floor(np.sqrt((PATTERN.astype(np.float64) ** 2).sum
 # the integer-rounded Gaussian blur BRIEF samples (ORBextractor.cc:850-856)
 BLUR_KSIZE = 7
 BLUR_SIGMA = 2.0
-# csrc/brief.cu layout: 32 = one warp per keypoint, 128 = one block
-BRIEF_THREADS_PER_KEYPOINT = 128
 
 
 def _circular_umax(radius: int = HALF_PATCH) -> np.ndarray:
@@ -345,11 +343,23 @@ def brief_levels_plain(levels, xy_flat, angle_flat, budgets) -> torch.Tensor:
     return out
 
 
-def brief_kernel_args(levels, budgets, threads: int = BRIEF_THREADS_PER_KEYPOINT) -> tuple:
+def brief_threads(batch: int) -> int:
+    """Threads per keypoint of a csrc/brief.cu launch over `batch`
+    streams: a block of 128 for one stream, whose ~1000 keypoints leave
+    most of the card idle, so a keypoint's shorter chain wins; one warp
+    for more, which fill it (the faster of the two at B = 1 and B = 8 on
+    the H100, PERF.md §6 PR 7)."""
+    return 128 if batch == 1 else 32
+
+
+def brief_kernel_args(levels, budgets, threads: int | None = None) -> tuple:
     """The level-table arguments of one csrc/brief.cu launch (host
     arrays), to be followed by xy, cos, sin, pattern, words and the
-    stream; `threads` per keypoint picks the kernel's layout."""
+    stream; `threads` per keypoint (32 or 128, by default
+    ``brief_threads``) picks the kernel's layout."""
     weights = image_ops.gauss_kernel1d(BLUR_KSIZE, BLUR_SIGMA).tolist()
+    if threads is None:
+        threads = brief_threads(math.prod(levels[0].shape[:-2]))
     return (*_level_table(levels, budgets), kernel_build.c_array(ctypes.c_float, weights),
             len(levels), BRIEF_SAMPLE_RADIUS, threads)
 

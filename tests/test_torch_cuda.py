@@ -250,7 +250,7 @@ def test_brief_levels_launch_bit_exact_and_bitwise_across_launch_shapes(cuda, b)
                                   torch.cat([a[i] for a in angles]), TUM1_BUDGETS)
         assert torch.equal(single, torch.cat([v[i] for v in views])), i
     other = torch.empty_like(words)
-    threads = 32 if orb.BRIEF_THREADS_PER_KEYPOINT == 128 else 128
+    threads = 32 if orb.brief_threads(b) == 128 else 128
     ca, sa = torch.cos(ang), torch.sin(ang)
     err = kernel_build.kernel("brief")(
         *orb.brief_kernel_args(levels, TUM1_BUDGETS, threads=threads), xy_flat.data_ptr(),

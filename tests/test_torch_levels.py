@@ -328,7 +328,7 @@ def test_brief_kernel_constants_match_the_wrapper():
         assert 2 * porb.BRIEF_SAMPLE_RADIUS + 1 <= const[size] < 2 * porb.BRIEF_SAMPLE_RADIUS + 1 + const[part]
     assert const["kTaps"] == porb.BLUR_KSIZE == len(pimage.gauss_kernel1d(7, 2.0))
     assert const["kMaxLevels"] == kernel_build.MAX_LEVELS
-    assert porb.BRIEF_THREADS_PER_KEYPOINT in (32, const["kBlock"])
+    assert {porb.brief_threads(b) for b in (1, 2, 8)} == {32, const["kBlock"]}
 
 
 def _per_level_composition(level_img, n_out, cfg):
