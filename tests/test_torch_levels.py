@@ -17,6 +17,7 @@ window radius and border map are checked against the pattern and
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -237,6 +238,7 @@ def test_brief_levels_equals_per_level_composition(rendered, b):
 
 
 BLUR_TOL = 1e-3  # share of blurred pixels XLA and torch may round apart (test_torch_frame.py)
+_jit_brief = jax.jit(jorb.brief_descriptors)  # one compile per level shape, not one per op
 
 
 def test_brief_levels_vs_reference(rendered):
@@ -252,11 +254,12 @@ def test_brief_levels_vs_reference(rendered):
     budgets, kps, xy_flat, ang = _level_keypoints(cfg, levels, active)
     words = porb.brief_levels(levels, xy_flat, ang, budgets)
     compared = skipped = 0
-    for li, lv, (xy, _), a, d in zip(active, levels, kps, porb.level_keypoint_views(ang, budgets, ()),
+    for li, lv, (xy, _), a, d in zip(active, levels, kps,
+                                     porb.level_keypoint_views(ang, budgets, ()),
                                      porb.level_keypoint_views(words, budgets, ())):
         ref_blur = np.round(np.asarray(jimage.gaussian_blur(jnp.asarray(lv.numpy()), 7, 2.0)))
-        ref = np.asarray(jorb.brief_descriptors(jnp.asarray(ref_blur), jnp.asarray(xy.numpy()),
-                                                jnp.asarray(a.numpy())))
+        ref = np.asarray(_jit_brief(jnp.asarray(ref_blur), jnp.asarray(xy.numpy()),
+                                    jnp.asarray(a.numpy())))
         blurred = torch.round(pimage.gaussian_blur(lv, 7, 2.0)).numpy()
         moved = blurred != ref_blur
         assert np.abs(blurred - ref_blur).max() <= 1.0 and moved.mean() < BLUR_TOL, li
@@ -325,7 +328,8 @@ def test_brief_kernel_constants_match_the_wrapper():
     assert const["kSampleR"] == porb.BRIEF_SAMPLE_RADIUS
     for size, part in (("kRows", "kBand"), ("kCols", "kRun")):
         assert const[size] % const[part] == 0
-        assert 2 * porb.BRIEF_SAMPLE_RADIUS + 1 <= const[size] < 2 * porb.BRIEF_SAMPLE_RADIUS + 1 + const[part]
+        side = 2 * porb.BRIEF_SAMPLE_RADIUS + 1
+        assert side <= const[size] < side + const[part]
     assert const["kTaps"] == porb.BLUR_KSIZE == len(pimage.gauss_kernel1d(7, 2.0))
     assert const["kMaxLevels"] == kernel_build.MAX_LEVELS
     assert {porb.brief_threads(b) for b in (1, 2, 8)} == {32, const["kBlock"]}

@@ -138,5 +138,6 @@ def test_wrappers_run_plain_versions_on_cpu():
     ang = porb.ic_angle(img, xy)
     assert torch.equal(ang, porb.ic_angle_plain(img, xy))
     blurred = torch.round(pimage.gaussian_blur(img, porb.BLUR_KSIZE, porb.BLUR_SIGMA))
-    assert torch.equal(porb.brief_level(img, xy, ang), porb.brief_descriptors_plain(blurred, xy, ang))
+    assert torch.equal(porb.brief_level(img, xy, ang),
+                       porb.brief_descriptors_plain(blurred, xy, ang))
     assert (porb.ic_angle_levels.launches, porb.brief_levels.launches) == before
