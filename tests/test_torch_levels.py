@@ -204,33 +204,38 @@ def test_kernel_constants_match_the_wrappers():
         np.testing.assert_array_equal(col, np.abs(dy) <= porb.IC_ROW_EXTENT[abs(dx)])
 
 
-def _level_keypoints(cfg, levels, active):
-    """The extractor's keypoints and IC angles of every active level,
-    level-major: (budgets, per-level (xy, valid), xy_flat, angle_flat)."""
+@pytest.fixture(scope="module")
+def level_keypoints(rendered):
+    """For 1 and 2 streams: the active levels, their budgets, and the
+    extractor's keypoints (per level) and IC angles, level-major."""
+    cfg, _, pyramids, active = rendered
     budgets = [cfg.orb.features_per_level()[li] for li in active]
-    kps = [pframe.keypoints_from_score(sc, n, cfg)
-           for sc, n in zip(pfast.fast_score_levels(levels), budgets)]
-    xy_flat = torch.cat([xy.reshape(-1, 2) for xy, _, _ in kps])
-    return budgets, [(xy, v) for xy, _, v in kps], xy_flat, porb.ic_angle_levels(
-        levels, xy_flat, budgets)
+    out = {}
+    for b in (1, 2):
+        levels = _stacked_levels(pyramids, active, b)
+        kps = [pframe.keypoints_from_score(sc, n, cfg)
+               for sc, n in zip(pfast.fast_score_levels(levels), budgets)]
+        xy_flat = torch.cat([xy.reshape(-1, 2) for xy, _, _ in kps])
+        out[b] = (levels, budgets, [xy for xy, _, _ in kps], xy_flat,
+                  porb.ic_angle_levels(levels, xy_flat, budgets))
+    return out
 
 
 @pytest.mark.parametrize("b", [1, 2])
-def test_brief_levels_equals_per_level_composition(rendered, b):
+def test_brief_levels_equals_per_level_composition(rendered, level_keypoints, b):
     """One level-major call for every active level on the CPU: per level
     the integer-rounded blur and brief_descriptors_plain, and the same as
     the one-level form, in the (B, n_l, 8) view of each level."""
-    cfg, _, pyramids, active = rendered
-    levels = _stacked_levels(pyramids, active, b)
-    budgets, kps, xy_flat, ang = _level_keypoints(cfg, levels, active)
+    active = rendered[3]
+    levels, budgets, kps, xy_flat, ang = level_keypoints[b]
     before = porb.brief_levels.launches
     words = porb.brief_levels(levels, xy_flat, ang, budgets)
     assert porb.brief_levels.launches == before  # the CPU launches nothing
     assert words.shape == (xy_flat.shape[0], 8) and words.dtype == torch.int32
     lead = (b,) if b > 1 else ()
-    for li, lv, (xy, _), a, d in zip(active, levels, kps,
-                                     porb.level_keypoint_views(ang, budgets, lead),
-                                     porb.level_keypoint_views(words, budgets, lead)):
+    for li, lv, xy, a, d in zip(active, levels, kps,
+                                porb.level_keypoint_views(ang, budgets, lead),
+                                porb.level_keypoint_views(words, budgets, lead)):
         assert d.is_contiguous() and d.shape == lead + (xy.shape[-2], 8)
         blurred = torch.round(pimage.gaussian_blur(lv, 7, 2.0))
         assert torch.equal(d, porb.brief_descriptors_plain(blurred, xy, a)), li
@@ -241,7 +246,7 @@ BLUR_TOL = 1e-3  # share of blurred pixels XLA and torch may round apart (test_t
 _jit_brief = jax.jit(jorb.brief_descriptors)  # one compile per level shape, not one per op
 
 
-def test_brief_levels_vs_reference(rendered):
+def test_brief_levels_vs_reference(rendered, level_keypoints):
     """Every active level against the JAX reference's rounded blur and
     brief_descriptors at the same keypoints and angles: equal words at
     every keypoint whose sampled blurred pixels agree between the two
@@ -249,14 +254,13 @@ def test_brief_levels_vs_reference(rendered):
     pixels (ulps of float32 tap sums); keypoints whose samples touch such
     a pixel are counted in the message, not compared, and are under a
     tenth of them."""
-    cfg, _, pyramids, active = rendered
-    levels = _stacked_levels(pyramids, active, 1)
-    budgets, kps, xy_flat, ang = _level_keypoints(cfg, levels, active)
+    active = rendered[3]
+    levels, budgets, kps, xy_flat, ang = level_keypoints[1]
     words = porb.brief_levels(levels, xy_flat, ang, budgets)
     compared = skipped = 0
-    for li, lv, (xy, _), a, d in zip(active, levels, kps,
-                                     porb.level_keypoint_views(ang, budgets, ()),
-                                     porb.level_keypoint_views(words, budgets, ())):
+    for li, lv, xy, a, d in zip(active, levels, kps,
+                                porb.level_keypoint_views(ang, budgets, ()),
+                                porb.level_keypoint_views(words, budgets, ())):
         ref_blur = np.round(np.asarray(jimage.gaussian_blur(jnp.asarray(lv.numpy()), 7, 2.0)))
         ref = np.asarray(_jit_brief(jnp.asarray(ref_blur), jnp.asarray(xy.numpy()),
                                     jnp.asarray(a.numpy())))
