@@ -348,7 +348,7 @@ def brief_threads(batch: int) -> int:
     streams: a block of 128 for one stream, whose ~1000 keypoints leave
     most of the card idle, so a keypoint's shorter chain wins; one warp
     for more, which fill it (the faster of the two at B = 1 and B = 8 on
-    the H100, PERF.md §6 PR 7)."""
+    the H100; chip_smoke.py times both)."""
     return 128 if batch == 1 else 32
 
 
