@@ -27,21 +27,37 @@ Phases, each printing one line with its elapsed seconds:
              batched pyramid and features against single-frame extraction
              (reported).
 3. track   - the points-only System over 30 synthetic 640x480 frames at the
-             TUM1 camera, with every kernel's launch count set to 0 first:
-             all frames tracked, ATE against the renderer's ground truth
-             below 0.05 m, FAST, IC angle and BRIEF each launched once per
-             frame.
-4. replay  - the batched multi-sequence replay (BASELINE config 5) through
-             parallel/mesh.py: B = 8 streams of the same 640x480 box room,
-             stream s at frame offset s, against the one shared map view of
-             keyframe 0, for 12 steps (the first not timed), with the launch
-             counts set to 0 first: every stream tracked on every step,
-             FAST, IC angle and BRIEF each launched once per step, each
-             stream's pose within 1e-3 m / 1e-3 rad of the single-stream
-             step run on the same frame and carry, and the poses' RMS
-             error against ground truth below 0.05 m.  Prints ms per step,
-             aggregate frames/s at B = 8 and B = 1 (the same entry point)
-             and the peak memory.
+             TUM1 camera (the orbit view), with every kernel's launch
+             count set to 0 first: all frames tracked, ATE against the
+             renderer's ground truth below 0.05 m, FAST, IC angle and BRIEF
+             each launched once per frame.
+4. planes  - System(TUM1, enable_planes=True) over 30 frames of the 640x480
+             "corner" view (a floor and two perpendicular walls; BASELINE
+             config 2's analog), launch counts set to 0 first: all frames
+             tracked, ATE below 0.05 m, at least one plane extracted on
+             every frame, each kernel launched once per frame; prints ms
+             per frame, the frames on which a Manhattan frame was found and
+             used, and the map planes.  At 640x480 the corner's depth
+             (3-7 m) passes the far-depth plane gates for every block, and
+             the device merge (the reference's as well) joins floor and
+             walls into one plane, so no Manhattan frame exists there; the
+             reference's own Manhattan bar (tests/test_planes_e2e.py: its
+             192x144 corner run, 10 frames) is then held on the card:
+             Manhattan found on >= 3 frames and used on >= 1, >= 2 map
+             planes, >= 1 Manhattan pair.
+5. replay  - the batched multi-sequence replay (BASELINE config 5) through
+             parallel/mesh.py with the plane branch on: B = 8 streams of
+             the 640x480 corner view, stream s at frame offset s, against
+             the one shared map view of keyframe 0 (with its map planes and
+             Manhattan registries), for 12 steps (the first not timed),
+             with the launch counts set to 0 first: every stream tracked on
+             every step, FAST, IC angle and BRIEF each launched once per
+             step, each stream's pose within 1e-3 m / 1e-3 rad of the
+             single-stream step run on the same frame and carry, and the
+             poses' RMS error against ground truth below 0.05 m.  Prints
+             ms per step, aggregate frames/s at B = 8 and B = 1 (the same
+             entry point), the peak memory and each stream's
+             manhattan_found.
 
 Any failure raises and the script exits nonzero.  It writes only into a
 temporary directory and the kernel build directory, and starts no thread.
@@ -63,7 +79,9 @@ import time
 import numpy as np
 import torch
 
-from manhattanslam_tpu_torch.config import load_config
+from manhattanslam_tpu_torch.config import (
+    CameraConfig, CapacityConfig, OrbConfig, SlamConfig, load_config,
+)
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
@@ -100,7 +118,8 @@ BLUR_OPS_PER_PIXEL = 2 * (7 + 6)
 # One row per TPU kernel (each function that reaches pl.pallas_call).  A
 # single kernel and its batched twin are served by one CUDA kernel, one
 # launch for all pyramid levels and streams; the single rows count
-# launches on the track phase's path, the batched rows on the replay's.
+# launches on the track phase's path (and list the planes phase's beside
+# them), the batched rows on the replay's.
 _FAST = "manhattanslam_tpu_torch/csrc/fast.cu"
 _IC = "manhattanslam_tpu_torch/csrc/ic_angle.cu"
 _BRIEF = "manhattanslam_tpu_torch/csrc/brief.cu"
@@ -433,13 +452,15 @@ def phase_kernels(cfg, dev, frames) -> dict:
     return stats
 
 
-def phase_track(cfg, seq, frames, tmp: str) -> tuple[dict, float]:
-    """The points-only System over N_FRAMES frames; returns the launch
-    counts of that run and its median ms per frame."""
+def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str) -> dict:
+    """System(cfg, enable_planes) over the frames with the launch counts
+    set to 0 first: every frame tracked, ATE below ATE_LIMIT and each
+    kernel launched once per frame.  Returns the launch counts, median ms
+    per frame and, with planes, per-frame plane and Manhattan counts."""
     t0 = time.perf_counter()
-    system = System(cfg)  # CUDA by default
+    system = System(cfg, enable_planes=enable_planes)  # CUDA by default
     reset_launches()
-    ms, tracked = [], 0
+    ms, tracked, n_planes, found, used = [], 0, [], 0, 0
     for ts, gray, depth in frames:
         t = time.perf_counter()
         T = system.track(gray, depth, ts)
@@ -447,32 +468,85 @@ def phase_track(cfg, seq, frames, tmp: str) -> tuple[dict, float]:
         ms.append((time.perf_counter() - t) * 1e3)
         if T is not None and np.isfinite(T).all():
             tracked += 1
+        res = system.tracker.last_result
+        if enable_planes and res is not None:
+            n_planes.append(int(res["plane_valid"].sum()))
+            found += int(res["manhattan_found"])
+            used += int(res["use_manhattan"])
     launches = read_launches()
     system.shutdown()
-    traj = os.path.join(tmp, "CameraTrajectory.txt")
+    traj = os.path.join(tmp, f"CameraTrajectory_{name}.txt")
     system.save_trajectory_tum(traj)
-    system.save_keyframe_trajectory_tum(os.path.join(tmp, "KeyFrameTrajectory.txt"))
+    system.save_keyframe_trajectory_tum(os.path.join(tmp, f"KeyFrameTrajectory_{name}.txt"))
     ts_e, pos_e, _ = traj_io.load_trajectory_tum(traj)
     gt = seq.gt_rows()
     ate = traj_io.ate_rmse(
         (ts_e, pos_e), (np.array([r[0] for r in gt]), np.array([r[1] for r in gt]))
     )
+    n = len(frames)
     med = statistics.median(ms[1:])
-    log(f"track: {tracked}/{N_FRAMES} frames tracked, {system.map.n_kf} keyframes, "
-        f"ATE {ate:.4f} m, median {med:.1f} ms/frame (first frame {ms[0]:.0f} ms), "
-        f"launches {launches}")
-    if tracked != N_FRAMES:
-        raise RuntimeError(f"only {tracked} of {N_FRAMES} frames tracked")
+    log(f"{name}: {tracked}/{n} frames tracked, {system.map.n_kf} keyframes, ATE {ate:.4f} m, "
+        f"median {med:.1f} ms/frame (first frame {ms[0]:.0f} ms), launches {launches}")
+    if tracked != n:
+        raise RuntimeError(f"{name}: only {tracked} of {n} frames tracked")
     if not ate < ATE_LIMIT:
-        raise RuntimeError(f"ATE {ate} m is not below {ATE_LIMIT} m")
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"kernel {name} was not launched on the main path")
-        if n != N_FRAMES * launches_per_frame()[name]:
-            raise RuntimeError(f"kernel {name} launched {n} times in {N_FRAMES} frames, not "
-                               f"{launches_per_frame()[name]} per frame")
-    log(f"phase track: {time.perf_counter() - t0:.1f} s")
-    return launches, med
+        raise RuntimeError(f"{name}: ATE {ate} m is not below {ATE_LIMIT} m")
+    for k, c in launches.items():
+        if c <= 0:
+            raise RuntimeError(f"{name}: kernel {k} was not launched on the main path")
+        if c != n * launches_per_frame()[k]:
+            raise RuntimeError(f"{name}: kernel {k} launched {c} times in {n} frames, not "
+                               f"{launches_per_frame()[k]} per frame")
+    out = {"launches": launches, "ms": med, "seconds": time.perf_counter() - t0}
+    if enable_planes:
+        out.update(planes_per_frame=n_planes, found=found, used=used,
+                   map_planes=int(system.map.pl_valid.sum()),
+                   pairs=len(system.map.manhattan_pairs),
+                   triples=len(system.map.manhattan_triples))
+    return out
+
+
+def phase_track(cfg, seq, frames, tmp: str) -> tuple[dict, float]:
+    """The points-only System over N_FRAMES frames of the orbit view;
+    returns the launch counts of that run and its median ms per frame."""
+    run = _run_system(cfg, seq, frames, tmp, False, "track")
+    log(f"phase track: {run['seconds']:.1f} s")
+    return run["launches"], run["ms"]
+
+
+def phase_planes(cfg, tmp: str) -> tuple[dict, float]:
+    """System(enable_planes=True) over N_FRAMES frames of the 640x480
+    corner view, then the reference's Manhattan bar at its own 192x144
+    corner run; returns the full-size run's launch counts and median ms
+    per frame."""
+    t0 = time.perf_counter()
+    seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera, view="corner")
+    run = _run_system(cfg, seq, [seq.frame(i) for i in range(N_FRAMES)], tmp, True, "planes")
+    log(f"planes: 640x480 corner, {run['ms']:.1f} ms/frame, kernel launches per frame "
+        f"{ {k: v / N_FRAMES for k, v in run['launches'].items()} }, planes per frame "
+        f"{run['planes_per_frame']}, Manhattan found on {run['found']} and used on "
+        f"{run['used']} of {N_FRAMES - 1} tracked frames, {run['map_planes']} map planes, "
+        f"{run['pairs']} Manhattan pairs, {run['triples']} triples")
+    if min(run["planes_per_frame"]) < 1 or run["map_planes"] < 1:
+        raise RuntimeError(f"planes: a frame without a plane ({run['planes_per_frame']}) or "
+                           f"no map plane ({run['map_planes']})")
+    small = SlamConfig(camera=CameraConfig(
+        fx=160.0, fy=160.0, cx=95.5, cy=71.5, k1=0, k2=0, p1=0, p2=0, k3=0,
+        width=192, height=144, bf=12.0,
+    ), orb=OrbConfig(n_features=250), caps=CapacityConfig(
+        max_keypoints=256, max_lines=32, max_map_points=8192, max_map_lines=512,
+        max_keyframes=64,
+    ))
+    seq_s = SyntheticSequence(n_frames=10, cam=small.camera, view="corner")
+    bar = _run_system(small, seq_s, [seq_s.frame(i) for i in range(10)], tmp, True, "planes_192x144")
+    log(f"planes: the reference's bar at 192x144 (10 corner frames): Manhattan found on "
+        f"{bar['found']} and used on {bar['used']} frames, {bar['map_planes']} map planes, "
+        f"{bar['pairs']} pairs, {bar['triples']} triples, {bar['ms']:.1f} ms/frame")
+    if not (bar["found"] >= 3 and bar["used"] >= 1 and bar["map_planes"] >= 2
+            and bar["pairs"] >= 1):
+        raise RuntimeError(f"planes: the Manhattan bar at 192x144 failed: {bar}")
+    log(f"phase planes: {time.perf_counter() - t0:.1f} s")
+    return run["launches"], run["ms"]
 
 
 def _rot_angle(R: np.ndarray) -> float:
@@ -512,10 +586,12 @@ def _replay_run(cfg, dev, seq, native, view, first: list[int]):
     return inputs, carries, outs, ms, launches
 
 
-def phase_replay(cfg, dev, seq, frames, track_ms: float) -> dict:
-    """The batched replay of BATCH streams against one shared view;
-    returns the launch counts of its run."""
+def phase_replay(cfg, dev, track_ms: float) -> dict:
+    """The batched replay (plane branch on) of BATCH streams of the corner
+    view against one shared view; returns the launch counts of its run."""
     t0 = time.perf_counter()
+    seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera, view="corner")
+    frames = [seq.frame(i) for i in range(N_FRAMES)]
     # the shared view of keyframe 0; stream s replays frames s, s+1, ...
     # from the ground-truth pose of frame s (parallel/replay.py)
     view, tracker = replay.shared_view(cfg, frames[0], dev)
@@ -544,7 +620,7 @@ def phase_replay(cfg, dev, seq, frames, track_ms: float) -> dict:
                 raise RuntimeError(
                     f"replay step {i}: {name} launched {n} times, not {per_step[name]}")
     # each stream against the single-stream step on the same frame and carry
-    single = dt.build_frame_step(cfg, dev)
+    single = dt.build_frame_step(cfg, dev, enable_planes=True)
     max_dt = max_dr = 0.0
     gt_err = []
     for i, ((g8, d16), carry, out) in enumerate(zip(inputs, carries, outs)):
@@ -563,6 +639,9 @@ def phase_replay(cfg, dev, seq, frames, track_ms: float) -> dict:
         f"{med_1:.2f} ms per step, {1e3 / med_1:.1f} frames/s; single-stream System "
         f"(track phase): {track_ms:.1f} ms per frame; peak memory {peak_mib:.1f} MiB; "
         f"launches per step {step_launches[-1]}")
+    log(f"replay: manhattan_found per stream and step "
+        f"{[o['manhattan_found'].astype(int).tolist() for o in outs]}, use_manhattan "
+        f"{[o['use_manhattan'].astype(int).tolist() for o in outs]}")
     log(f"replay: against the single-stream step on the same frame and carry: max "
         f"{max_dt:.3g} m, {max_dr:.3g} rad; against ground truth: RMS {gt_rms:.4f} m, "
         f"max {max(gt_err):.4f} m")
@@ -589,14 +668,17 @@ def main() -> int:
     stats = phase_kernels(cfg, dev, frames)
     with tempfile.TemporaryDirectory() as tmp:
         track_launches, track_ms = phase_track(cfg, seq, frames, tmp)
-    replay_launches = phase_replay(cfg, dev, seq, frames, track_ms)
-    launches = {"track": track_launches, "replay": replay_launches}
+        planes_launches, _ = phase_planes(cfg, tmp)
+    replay_launches = phase_replay(cfg, dev, track_ms)
+    launches = {"track": track_launches, "planes": planes_launches, "replay": replay_launches}
+    paths = {"track": ("track", "planes"), "replay": ("replay",)}
     rows = []
     for name, k in KERNELS.items():
         st = stats[name]
         rows.append({
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
             "launches": launches[k["path"]][k["wrapper"].__name__],
+            "launches_by_path": {p: launches[p][k["wrapper"].__name__] for p in paths[k["path"]]},
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "device_ms": st["device_ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,

@@ -1,11 +1,13 @@
 """Carry the reference package's tracker state into the port.
 
 The system has no learned weights; what a tracker carries is state: the
-map's point and keyframe tables, the per-frame device carry, and the BRIEF
-pattern.  These functions take that state as numpy arrays (as the JAX
-package's ``SlamMap`` attributes, ``jax.device_get(init_carry(...))`` and
-``ops.orb.PATTERN`` hand it over) and return the port's objects, so the
-two trackers can start from the same state.  Descriptor words (uint32)
+map's point, plane and keyframe tables with the Manhattan registries, the
+per-frame device carry, and the BRIEF pattern.  These functions take that
+state as numpy arrays and dicts (as the JAX package's ``SlamMap``
+attributes, its ``FastTracker.reg2`` / ``reg3``,
+``jax.device_get(init_carry(...))`` and ``ops.orb.PATTERN`` hand it over)
+and return the port's objects, so the two trackers can start from the
+same state.  Descriptor words (uint32)
 become int32 tensors with the same bits.  Nothing here imports JAX.
 """
 
@@ -17,15 +19,19 @@ import torch
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.slam_map import SlamMap
 
-# SlamMap attributes carried over (the port's point and keyframe tables)
+# SlamMap attributes carried over (the port's point, plane and keyframe
+# tables)
 MAP_TABLES = (
     "mp_pos", "mp_desc", "mp_normal", "mp_min_dist", "mp_max_dist", "mp_level",
     "mp_valid", "mp_n_obs", "mp_visible", "mp_found", "mp_first_kf",
+    "pl_coeffs", "pl_pts", "pl_n_pts", "pl_valid", "pl_n_obs", "pl_first_kf", "pl_color",
     "kf_pose", "kf_time", "kf_frame_id", "kf_valid", "kf_xy", "kf_uright",
     "kf_depth", "kf_level", "kf_angle", "kf_desc", "kf_kp_valid", "kf_mp_idx",
-    "covis", "kf_parent",
+    "kf_pl_idx", "kf_plane_coeffs", "kf_plane_npts", "covis", "kf_parent",
 )
 MAP_SCALARS = ("n_kf", "last_kf_added")
+# the Manhattan registries as the map keeps them (sorted id tuple -> kf)
+MAP_REGISTRIES = ("manhattan_pairs", "manhattan_triples")
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -49,7 +55,24 @@ def slam_map_from_numpy(cfg: SlamConfig, tables: dict) -> SlamMap:
     for k in MAP_SCALARS:
         setattr(m, k, int(tables[k]))
     m.kf_free = [int(i) for i in tables.get("kf_free", [])]
+    for k in MAP_REGISTRIES:
+        setattr(m, k, {tuple(int(i) for i in key): int(kf) for key, kf in tables.get(k, {}).items()})
+    m.kf_not_erase = {int(kf) for kf in tables.get("kf_not_erase", ())}
     return m
+
+
+def registries_from_numpy(cfg: SlamConfig, reg2, reg3) -> tuple[np.ndarray, np.ndarray]:
+    """The tracker's dense Manhattan registries (reg2 (M, M), reg3
+    (M, M, M) int32 keyframe ids, -1 none) as copies the port's tracker
+    and view take."""
+    M = cfg.caps.max_map_planes
+    out = []
+    for a, shape in ((reg2, (M, M)), (reg3, (M, M, M))):
+        a = np.array(a, np.int32)
+        if a.shape != shape:
+            raise ValueError(f"registry shape {a.shape}, the config needs {shape}")
+        out.append(a)
+    return out[0], out[1]
 
 
 def carry_from_numpy(carry: dict, device) -> dict:

@@ -1,4 +1,4 @@
-"""The fused per-frame device step, points only (counterpart of
+"""The fused per-frame device step, points and planes (counterpart of
 manhattanslam_tpu/frontend/device_tracker.py).
 
 One call per frame runs on the device with no host round trip inside:
@@ -8,13 +8,21 @@ One call per frame runs on the device with no host round trip inside:
        (r=7) and its widened retry (r=14) from the motion-model seed, and
        descriptor matching against the reference keyframe from the last
        pose -> device-side selection of the initial pose
-    -> final 4-round solve (r=4) -> polar re-orthonormalization
-    -> keyframe-policy counts and the next carry
+    -> planes (enable_planes): extraction, association with the map
+       planes at the seed pose, Manhattan-frame detection against the
+       registries, and the translation-only re-solve under the Manhattan
+       rotation with its reference-keyframe descriptor fallback, both as
+       one batched solve
+    -> final 4-round solve (r=4) with the plane residuals -> polar
+       re-orthonormalization -> keyframe-policy counts and the next carry
 
-The map view (landmarks + the reference keyframe's banks) lives on the
-device and is updated in place only at keyframe events, from a row diff
-of two host snapshots.  The plane, line and Manhattan branches of the
-reference step come with the slices that add them.
+The reference chooses between branches with ``lax.cond``; here every
+branch is computed for every stream and selected with ``torch.where``, so
+nothing in the step waits on the host.  The map view (landmarks, map
+planes, keyframe plane observations and poses, the Manhattan registries
+and the reference keyframe's banks) lives on the device and is updated in
+place only at keyframe events, from a row diff of two host snapshots.
+Lines come with the slice that adds them.
 
 The body is written once, for B streams that share one map view
 (``build_batched_body``, the batched replay of parallel/mesh.py);
@@ -22,6 +30,8 @@ the single-stream body is its B = 1 case.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -31,6 +41,7 @@ from manhattanslam_tpu_torch.frontend import tracking_ops
 from manhattanslam_tpu_torch.frontend.frame import build_extractor
 from manhattanslam_tpu_torch.geometry import se3
 from manhattanslam_tpu_torch.ops import lm, matching
+from manhattanslam_tpu_torch.ops import planes as plane_ops
 
 DEPTH_QUANT = 5000.0  # 0.2 mm steps, 13.1 m range (TUM DepthMapFactor)
 CAND_CAP = 2048  # frustum candidates shared by the frame's solves
@@ -49,16 +60,28 @@ def to_native(gray: np.ndarray, depth: np.ndarray) -> tuple[np.ndarray, np.ndarr
 
 
 # ---------------------------------------------------------------- map view
-_VIEW_ROW_KEYS = (
-    "mp_pos", "mp_desc", "mp_valid", "mp_normal", "mp_min", "mp_max", "mp_level",
-)
-_VIEW_FULL_KEYS = ("ref_desc", "ref_angle", "ref_mp")
+# groups of view keys that share one leading row index
+_VIEW_GROUPS = {
+    "mp": ("mp_pos", "mp_desc", "mp_valid", "mp_normal", "mp_min", "mp_max", "mp_level"),
+    "pl": ("pl_coeffs", "pl_pts", "pl_npts", "pl_valid"),
+    "kf": ("kf_pl_idx", "kf_plane_coeffs", "kf_plane_npts", "kf_pose"),
+}
+_VIEW_FULL_KEYS = ("ref_desc", "ref_angle", "ref_mp", "reg2")
 
 
-def build_host_view(cfg: SlamConfig, slam_map, ref_kf: int = 0) -> dict:
+def empty_registries(cfg: SlamConfig) -> tuple[np.ndarray, np.ndarray]:
+    """The Manhattan registries as dense id matrices, all -1: reg2
+    (M, M) and reg3 (M, M, M) hold, for each pair or triple of map planes,
+    the keyframe that saw them mutually perpendicular."""
+    M = cfg.caps.max_map_planes
+    return np.full((M, M), -1, np.int32), np.full((M, M, M), -1, np.int32)
+
+
+def build_host_view(cfg: SlamConfig, slam_map, ref_kf: int = 0, reg2=None, reg3=None) -> dict:
     """The tracking-relevant map state as one host dict of array copies
     (a frozen snapshot that doubles as the shadow for incremental diffs)."""
     m = slam_map
+    e2, e3 = empty_registries(cfg) if reg2 is None or reg3 is None else (None, None)
     return {
         # landmarks (identity mapping: view index == map point id)
         "mp_pos": m.mp_pos.copy(),
@@ -68,10 +91,23 @@ def build_host_view(cfg: SlamConfig, slam_map, ref_kf: int = 0) -> dict:
         "mp_min": m.mp_min_dist.copy(),
         "mp_max": np.maximum(m.mp_max_dist, 1e-6),
         "mp_level": m.mp_level.copy(),
+        # planes
+        "pl_coeffs": m.pl_coeffs.copy(),
+        "pl_pts": m.pl_pts.copy(),
+        "pl_npts": m.pl_n_pts.copy(),
+        "pl_valid": m.pl_valid.copy(),
+        # keyframe plane observations and poses (Manhattan MFm)
+        "kf_pl_idx": m.kf_pl_idx.copy(),
+        "kf_plane_coeffs": m.kf_plane_coeffs.copy(),
+        "kf_plane_npts": m.kf_plane_npts.copy(),
+        "kf_pose": m.kf_pose.copy(),
         # ref-KF landmark view (descriptor candidate)
         "ref_desc": m.kf_desc[ref_kf].copy(),
         "ref_angle": m.kf_angle[ref_kf].copy(),
         "ref_mp": m.kf_mp_idx[ref_kf].copy(),
+        # Manhattan registries
+        "reg2": e2 if reg2 is None else reg2.copy(),
+        "reg3": e3 if reg3 is None else reg3.copy(),
     }
 
 
@@ -105,38 +141,191 @@ def set_ref_kf(view: dict, slam_map, ref_kf: int) -> dict:
     return view
 
 
+def _changed_rows(shadow: np.ndarray, host: np.ndarray) -> np.ndarray:
+    n = host.shape[0]
+    return np.nonzero((shadow.reshape(n, -1) != host.reshape(n, -1)).any(axis=1))[0]
+
+
 def diff_host_views(shadow: dict, host: dict) -> list[dict]:
     """Row-level diff of two host views -> [] or one update dict: the
-    changed landmark rows ("mp_idx" + those rows of each row key) and the
-    ref-KF banks whole."""
-    n = host["mp_pos"].shape[0]
-    changed = np.zeros(n, bool)
-    for k in _VIEW_ROW_KEYS:
-        changed |= (shadow[k].reshape(n, -1) != host[k].reshape(n, -1)).any(axis=1)
-    rows = np.nonzero(changed)[0]
+    changed rows of each group ("<group>_idx" + those rows of each of its
+    keys), the changed reg3 entries ("reg3_idx" into the flat registry,
+    "reg3_val") and the full keys whole.  A keyframe event touches a
+    handful of rows and registry entries, so reg3 (1 MiB at 64 map
+    planes) never crosses whole after the first upload."""
+    rows = {
+        g: np.unique(np.concatenate([_changed_rows(shadow[k], host[k]) for k in keys]))
+        for g, keys in _VIEW_GROUPS.items()
+    }
+    r3 = np.nonzero(shadow["reg3"].ravel() != host["reg3"].ravel())[0]
     full = any(not np.array_equal(shadow[k], host[k]) for k in _VIEW_FULL_KEYS)
-    if len(rows) == 0 and not full:
+    if not full and len(r3) == 0 and not any(len(r) for r in rows.values()):
         return []
-    upd = {"mp_idx": rows.astype(np.int64)}
-    for k in _VIEW_ROW_KEYS:
-        upd[k] = host[k][rows]
+    upd = {}
+    for g, keys in _VIEW_GROUPS.items():
+        upd[g + "_idx"] = rows[g].astype(np.int64)
+        for k in keys:
+            upd[k] = host[k][rows[g]]
+    upd["reg3_idx"] = r3.astype(np.int64)
+    upd["reg3_val"] = host["reg3"].ravel()[r3]
     for k in _VIEW_FULL_KEYS:
         upd[k] = host[k]
     return [upd]
 
 
 def apply_view_update(view: dict, updates: list[dict]) -> dict:
-    """Scatter the changed rows into the device view IN PLACE (the view's
-    storage is reused, as the reference donates it) and replace the ref-KF
-    banks."""
+    """Scatter the changed rows and registry entries into the device view
+    IN PLACE (the view's storage is reused, as the reference donates it)
+    and replace the full keys."""
     for upd in updates:
         dev = view["mp_pos"].device
-        idx = torch.from_numpy(upd["mp_idx"]).to(dev)
-        for k in _VIEW_ROW_KEYS:
-            view[k].index_copy_(0, idx, _to_device(upd[k], dev))
+        for g, keys in _VIEW_GROUPS.items():
+            if len(upd[g + "_idx"]) == 0:
+                continue
+            idx = torch.from_numpy(upd[g + "_idx"]).to(dev)
+            for k in keys:
+                view[k].index_copy_(0, idx, _to_device(upd[k], dev))
+        if len(upd["reg3_idx"]):
+            view["reg3"].view(-1).index_copy_(
+                0, torch.from_numpy(upd["reg3_idx"]).to(dev), _to_device(upd["reg3_val"], dev))
         for k in _VIEW_FULL_KEYS:
             view[k] = _to_device(upd[k], dev)
     return view
+
+
+# -------------------------------------------------------- planes, Manhattan
+def associate_planes_device(fp_coeffs, fp_valid, T_cw, view, ang_th, dis_th, ver_th, par_th):
+    """PlaneMatcher::SearchMapByCoefficients for B streams: each frame
+    plane (B, P, 4) against every map plane -> (assoc, par, ver) (B, P)
+    map-plane ids or -1: the associated plane (normals within ang_th, the
+    nearest cloud point within dis_th, least distance wins), the most
+    perpendicular and the most parallel one."""
+    pi_w = lm.transform_plane_g2o(se3.inverse(T_cw), fp_coeffs)  # (B, P, 4)
+    ang = pi_w[..., :3] @ view["pl_coeffs"][:, :3].T  # (B, P, M)
+    pts = view["pl_pts"]  # (M, K, 3)
+    d_all = torch.abs(
+        torch.einsum("mki,bpi->bpmk", pts, pi_w[..., :3]) + pi_w[..., 3, None, None]
+    )
+    pt_ok = torch.arange(pts.shape[1], device=pts.device) < view["pl_npts"][:, None]
+    d_min = torch.where(pt_ok, d_all, torch.full_like(d_all, 1e9)).amin(-1)  # (B, P, M)
+    base = fp_valid[..., None] & view["pl_valid"]
+    big = torch.full_like(ang, 1e9)
+
+    def pick(ok, cost):
+        cost = torch.where(ok, cost, big)
+        best = torch.argmin(cost, -1).to(torch.int32)
+        return torch.where(cost.amin(-1) < 1e9, best, -1)
+
+    assoc = pick(base & (ang > ang_th) & (d_min < dis_th), d_min)
+    ver = pick(base & (ang.abs() < ver_th), ang.abs())
+    par = pick(base & (ang.abs() > par_th), -ang.abs())
+    return assoc, par, ver
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_triple_index(P: int, device: torch.device) -> tuple:
+    """The P planes' pairs (i < j) and every (i, j, k) with its i < j < k
+    mask, as the reference enumerates them."""
+    pi, pj = torch.triu_indices(P, P, 1, device=device)
+    idx = torch.arange(P, device=device)
+    ti, tj, tk = (a.reshape(-1) for a in torch.meshgrid(idx, idx, idx, indexing="ij"))
+    return pi, pj, ti, tj, tk, (ti < tj) & (tj < tk)
+
+
+def detect_manhattan_device(fp_coeffs, fp_support, fp_valid, assoc, view, mf_ver_th):
+    """Tracking::DetectManhattan (Tracking.cc:651-844) for B streams: the
+    best mutually perpendicular pair or triple of associated frame planes
+    that a keyframe registered, scored by support; its camera-frame
+    normals (MFc) against the keyframe's own observations (MFm) give the
+    rotation.  Returns (R_cw (B, 3, 3), found (B,))."""
+    P = fp_coeffs.shape[-2]
+    n = fp_coeffs[..., :3]
+    ok_pl = fp_valid & (assoc >= 0)
+    a_s = torch.clamp(assoc, min=0).long()
+    pi, pj, ti, tj, tk, tmask = _pair_triple_index(P, fp_coeffs.device)
+    kf_pl, kf_np, kf_co = view["kf_pl_idx"], view["kf_plane_npts"], view["kf_plane_coeffs"]
+
+    def kf_slot(kf, mp_id):
+        """Slot of map plane mp_id among keyframe kf's planes (-1 none)."""
+        eq = kf_pl[kf] == mp_id[..., None]
+        return torch.where(eq.any(-1), torch.argmax(eq.to(torch.int32), -1), -1)
+
+    def perp(a, b):
+        return torch.abs(torch.sum(n[:, a] * n[:, b], -1)) < mf_ver_th
+
+    def npts(kf, slot):
+        return kf_np[torch.clamp(kf, min=0), torch.clamp(slot, min=0)]
+
+    # pairs
+    kf2 = view["reg2"][a_s[:, pi], a_s[:, pj]].long()
+    k2 = torch.clamp(kf2, min=0)
+    s_i, s_j = kf_slot(k2, a_s[:, pi]), kf_slot(k2, a_s[:, pj])
+    pair_ok = ok_pl[:, pi] & ok_pl[:, pj] & perp(pi, pj)
+    pair_ok = pair_ok & (kf2 >= 0) & (s_i >= 0) & (s_j >= 0)
+    pair_score = torch.where(
+        pair_ok, npts(kf2, s_i) + npts(kf2, s_j) + fp_support[:, pi] + fp_support[:, pj], -1)
+    # triples
+    kf3 = view["reg3"][a_s[:, ti], a_s[:, tj], a_s[:, tk]].long()
+    k3 = torch.clamp(kf3, min=0)
+    t_i, t_j, t_k = kf_slot(k3, a_s[:, ti]), kf_slot(k3, a_s[:, tj]), kf_slot(k3, a_s[:, tk])
+    tr_ok = tmask & perp(ti, tj) & perp(ti, tk) & perp(tj, tk)
+    tr_ok = tr_ok & ok_pl[:, ti] & ok_pl[:, tj] & ok_pl[:, tk]
+    tr_ok = tr_ok & (kf3 >= 0) & (t_i >= 0) & (t_j >= 0) & (t_k >= 0)
+    np3 = npts(kf3, t_i) + npts(kf3, t_j) + npts(kf3, t_k)
+    tr_score = torch.where(
+        tr_ok, np3 + fp_support[:, ti] + fp_support[:, tj] + fp_support[:, tk], -1)
+
+    best_pair = torch.argmax(pair_score, -1, keepdim=True)
+    best_tr = torch.argmax(tr_score, -1, keepdim=True)
+    top_pair = pair_score.gather(-1, best_pair)[:, 0]
+    top_tr = tr_score.gather(-1, best_tr)[:, 0]
+    use_triple = top_tr >= torch.clamp(top_pair, min=0)
+    found = (top_tr > 0) | (top_pair > 0)
+
+    def at(x, best):  # x (B, Q) -> (B,) at each stream's best entry
+        return x.gather(-1, best)[:, 0]
+
+    def normal(idx, best):  # the frame normal of plane idx[best]
+        return n.gather(1, idx[best][..., None].expand(-1, 1, 3))[:, 0]
+
+    def coeff(kf, slot):
+        return kf_co[torch.clamp(kf, min=0), torch.clamp(slot, min=0), :3]
+
+    u3 = use_triple[:, None]
+    c1 = torch.where(u3, normal(ti, best_tr), normal(pi, best_pair))
+    c2 = torch.where(u3, normal(tj, best_tr), normal(pj, best_pair))
+    kf_t, kf_p = at(kf3, best_tr), at(kf2, best_pair)
+    m1 = torch.where(u3, coeff(kf_t, at(t_i, best_tr)), coeff(kf_p, at(s_i, best_pair)))
+    m2 = torch.where(u3, coeff(kf_t, at(t_j, best_tr)), coeff(kf_p, at(s_j, best_pair)))
+    c3 = torch.where(u3, normal(tk, best_tr), torch.linalg.cross(c1, c2))
+    m3 = torch.where(u3, coeff(kf_t, at(t_k, best_tr)), torch.linalg.cross(m1, m2))
+
+    def ortho(a, b, c, fix_det):
+        M = torch.stack([a, b, c], -1)  # the normals as columns
+        det = (
+            M[:, 0, 0] * (M[:, 1, 1] * M[:, 2, 2] - M[:, 1, 2] * M[:, 2, 1])
+            - M[:, 0, 1] * (M[:, 1, 0] * M[:, 2, 2] - M[:, 1, 2] * M[:, 2, 0])
+            + M[:, 0, 2] * (M[:, 1, 0] * M[:, 2, 1] - M[:, 1, 1] * M[:, 2, 0])
+        )
+        flip = fix_det & (torch.abs(det + 1.0) < 0.5)
+        M = torch.cat([M[..., :2], M[..., 2:] * torch.where(flip, -1.0, 1.0)[:, None, None]], -1)
+        return se3.polar_rotation(M)
+
+    MFc = ortho(c1, c2, c3, ~use_triple)
+    MFm = ortho(m1, m2, m3, ~use_triple)
+    kf_best = torch.clamp(torch.where(use_triple, kf_t, kf_p), min=0)
+    R_wc = view["kf_pose"][kf_best][:, :3, :3].transpose(-1, -2) @ MFm @ MFc.transpose(-1, -2)
+    return R_wc.transpose(-1, -2), found
+
+
+def build_plane_obs_device(fp_coeffs, assoc, par, ver, view) -> tracking_ops.PlaneObs:
+    """The frame planes against their associated, parallel and
+    perpendicular map planes."""
+    def w(ids):
+        return view["pl_coeffs"][torch.clamp(ids, min=0).long()]
+
+    return tracking_ops.PlaneObs(
+        w(assoc), fp_coeffs, assoc >= 0, w(par), fp_coeffs, par >= 0, w(ver), fp_coeffs, ver >= 0)
 
 
 # ------------------------------------------------------------------ carry
@@ -167,22 +356,35 @@ def init_carry(
 
 
 # --------------------------------------------------------------- the step
-def build_batched_body(cfg: SlamConfig, device):
+def _f32(x) -> float:
+    """A threshold as the float32 value the reference compares with."""
+    return float(np.float32(x))
+
+
+def build_batched_body(cfg: SlamConfig, device, enable_planes: bool = False):
     """Returns body(gray (B,H,W) f32, depth (B,H,W) f32 m, carry, view) ->
     (result, new_carry) for B independent streams that share one map view
     (the reference's ``jax.vmap(body, in_axes=(0, 0, None))``): every
     carry and result tensor has a leading stream axis B, the view none.
     The streams run as one batch per op (no loop over streams), so a step
-    launches the same kernels whatever B is."""
+    launches the same kernels whatever B is.  enable_planes adds the plane
+    and Manhattan branch (the reference's ``build_frame_body`` with
+    ``enable_planes=True, enable_lines=False``)."""
     device = torch.device(device)
     extract = build_extractor(cfg, device)
+    params = lm.default_params(cfg)
     K = torch.from_numpy(cfg.camera.K).to(device)
     bf = float(cfg.camera.bf)
     hw = (cfg.camera.height, cfg.camera.width)
     sf = cfg.orb.scale_factor
     nl = cfg.orb.n_levels
     sf_t = torch.tensor(sf, dtype=torch.float32, device=device)
-    close_th = float(np.float32(cfg.th_depth_m))
+    close_th = _f32(cfg.th_depth_m)
+    P = cfg.caps.max_planes_frame
+    h2, w2 = cfg.camera.height // 2, cfg.camera.width // 2
+    grid_shape = (h2 // plane_ops.BLOCK, w2 // plane_ops.BLOCK)
+    min_support = _f32(0.04 * h2 * w2)
+    pc = cfg.plane
 
     def body(gray, depth, carry, view):
         B = gray.shape[0]
@@ -258,7 +460,7 @@ def build_batched_body(cfg: SlamConfig, device):
         )
         outs = lm.solve_pose(
             lm.stack_problems([prob_a, prob_c, prob_r]),
-            torch.cat([T_seed, T_last, T_seed]), K, bf,
+            torch.cat([T_seed, T_last, T_seed]), K, bf, params,
             n_rounds=2, n_iters=4, gauss_newton=True,
         )
         T_a, T_c, T_r = outs["T"].reshape(3, B, 4, 4)
@@ -271,18 +473,84 @@ def build_batched_body(cfg: SlamConfig, device):
         T_init = torch.where(ok_ab[:, None, None], T_ab, T_c)
         init_ok = ok_ab | ok_c
 
-        # final solve: 4 chi2-gated rounds of 5 LM iterations
+        no = torch.zeros(B, dtype=torch.bool, device=device)
+        man_found = use_manh = no
+        plane_obs, T_mid, plane_out = None, T_init, {}
+        if enable_planes:
+            # planes, associated at the motion-model seed pose: the
+            # reference runs SearchMapByCoefficients before any point
+            # solve (Tracking.cc:253)
+            planes = plane_ops.extract_planes_device(
+                depth, K, P, cfg.caps.max_plane_points, grid_shape, min_support,
+                _f32(pc.distance_threshold),
+            )
+            assoc, par, ver = associate_planes_device(
+                planes["coeffs"], planes["valid"], T_seed, view,
+                _f32(pc.association_ang_ref), _f32(pc.association_dis_ref),
+                _f32(pc.vertical_threshold), _f32(pc.parallel_threshold),
+            )
+            man_R, man_found = detect_manhattan_device(
+                planes["coeffs"], planes["n_support"], planes["valid"], assoc, view,
+                _f32(pc.mf_vertical_threshold),
+            )
+            plane_obs = build_plane_obs_device(planes["coeffs"], assoc, par, ver, view)
+
+            # the Manhattan decoupled translation-only re-solve from the
+            # Manhattan rotation (Tracking.cc:846-944): by projection
+            # (r=7) and, for the reference's fallback when that finds
+            # fewer than 7 inliers, by descriptors against the reference
+            # keyframe; both solved for every stream as one batch of 2B
+            T_manh = T_init.clone()
+            T_manh[:, :3, :3] = man_R
+            prob_t, _ = tracking_ops.projection_problem(
+                mp_view, T_manh, feats, K, 7.0, hw, cand, scale_factor=sf, bank_stats=False,
+                plane_obs=plane_obs,
+            )
+            prob_t2 = prob_c._replace(**plane_obs._asdict())
+            out_t = lm.solve_pose(
+                lm.stack_problems([prob_t, prob_t2]), torch.cat([T_manh, T_manh]), K, bf,
+                params, translation_only=True, n_rounds=2, n_iters=4, gauss_newton=True,
+                use_planes=True,
+            )
+            T_t, T_t2 = out_t["T"].reshape(2, B, 4, 4)
+            n_t, n_t2 = out_t["inlier_pt"].sum(-1).reshape(2, B)
+            # nmatchesMap >= 7 (TranslationEstimation, Tracking.cc:941)
+            ok_t = n_t >= 7
+            fallback = man_found & ~ok_t
+            use_manh = man_found & (ok_t | (fallback & (n_t2 >= 7)))
+            T_man = torch.where(ok_t[:, None, None], T_t, T_t2)
+            T_mid = torch.where(use_manh[:, None, None], T_man, T_init)
+            plane_out = {
+                "new_plane": (planes["valid"] & (assoc < 0)).any(-1),
+                "plane_coeffs": planes["coeffs"],
+                "plane_valid": planes["valid"],
+                "plane_support": planes["n_support"],
+                "plane_assoc": assoc,
+                "plane_membership": planes["membership"],
+                "plane_cloud": planes["cloud"],
+                "plane_npts": planes["n_pts"],
+            }
+
+        # final solve with the plane residuals: 4 chi2-gated rounds of 5 LM
+        # iterations
         out_f = tracking_ops.track_projection(
-            mp_view, T_init, feats, K, bf, 4.0, hw, cand, scale_factor=sf,
-            n_rounds=4, n_iters=5, bank_stats=True,
+            mp_view, T_mid, feats, K, bf, 4.0, hw, cand, scale_factor=sf,
+            n_rounds=4, n_iters=5, bank_stats=True, plane_obs=plane_obs, params=params,
+            use_planes=enable_planes,
         )
         # one polar projection per frame pins the rotation block's f32
         # non-orthonormal drift (velocity @ T_last compounds it)
         T_final = out_f["T"].clone()
         T_final[:, :3, :3] = se3.polar_rotation(T_final[:, :3, :3], iters=2)
+        # success gate: points and planes together pass at >= 7
+        # (Tracking.cc:1423-1429), with the reference's extra n_pt_f >= 7
+        # (device_tracker.py:887) kept for parity
         n_pt_f = out_f["n_pt_inliers"].to(torch.int32)
-        n_inl = n_pt_f
-        tracked_ok = init_ok & (n_pt_f >= 7) & (n_inl >= 7)
+        n_pl_f = out_f["inlier_pl"].sum(-1).to(torch.int32) if enable_planes else None
+        n_inl = n_pt_f if n_pl_f is None else n_pt_f + n_pl_f
+        # a pose comes from a candidate solve or from the Manhattan path
+        reachable = init_ok | use_manh if enable_planes else init_ok
+        tracked_ok = reachable & (n_pt_f >= 7) & (n_inl >= 7)
         ok3 = tracked_ok[:, None, None]
 
         # matches to the temporal block (bank index >= n_map) count as
@@ -290,6 +558,8 @@ def build_batched_body(cfg: SlamConfig, device):
         kp_mp_ext = out_f["kp_mp"]
         kp_mp = torch.where(kp_mp_ext >= n_map, -1, kp_mp_ext)
         n_map_inliers = (kp_mp >= 0).sum(-1).to(torch.int32)
+        if n_pl_f is not None:
+            n_map_inliers = n_map_inliers + n_pl_f
         close = feats["valid"] & (feats["depth"] > 0) & (feats["depth"] < close_th)
         kp_matched = kp_mp >= 0
 
@@ -314,10 +584,13 @@ def build_batched_body(cfg: SlamConfig, device):
             "n_matches": out_f["n_matches"],
             "tracked_close": (close & kp_matched).sum(-1),
             "nontracked_close": (close & ~kp_matched).sum(-1),
+            "manhattan_found": man_found,
+            "use_manhattan": use_manh,
             "kp_mp": kp_mp,
             "matched": out_f["matched"][:, :n_map],
             "visible": out_f["visible"][:, :n_map],
             "feats": feats,
+            **plane_out,
         }
         return result, new_carry
 
@@ -328,12 +601,12 @@ def _first_stream(tree: dict) -> dict:
     return {k: _first_stream(v) if isinstance(v, dict) else v[0] for k, v in tree.items()}
 
 
-def build_frame_body(cfg: SlamConfig, device):
+def build_frame_body(cfg: SlamConfig, device, enable_planes: bool = False):
     """Returns body(gray (H,W) f32, depth (H,W) f32 m, carry, view) ->
     (result, new_carry), every tensor on `device`: the batched body at
     B = 1, with the stream axis added to the inputs and taken off the
     outputs."""
-    batched = build_batched_body(cfg, device)
+    batched = build_batched_body(cfg, device, enable_planes)
 
     def body(gray, depth, carry, view):
         result, new_carry = batched(
@@ -351,10 +624,10 @@ def frame_to_float(gray8: torch.Tensor, d16: torch.Tensor) -> tuple[torch.Tensor
     return gray8.to(torch.float32), d16.to(torch.float32) * inv_q
 
 
-def build_frame_step(cfg: SlamConfig, device):
+def build_frame_step(cfg: SlamConfig, device, enable_planes: bool = False):
     """Returns step(gray8 (H,W) uint8, d16 (H,W) int32 in DEPTH_QUANT
     units, carry, view) -> (result, new_carry): the frame's device program."""
-    body = build_frame_body(cfg, device)
+    body = build_frame_body(cfg, device, enable_planes)
 
     def step(gray8, d16, carry, view):
         return body(*frame_to_float(gray8, d16), carry, view)
@@ -367,11 +640,27 @@ SUMMARY_KEYS = (
     "T", "tracked_ok", "n_inliers", "n_map_inliers", "n_matches",
     "tracked_close", "nontracked_close", "kp_mp", "matched", "visible",
 )
+# the plane branch's per-frame flags and associations, pulled as ONE
+# int32 buffer (one sync): manhattan_found, use_manhattan, new_plane,
+# then plane_assoc (P) and plane_valid (P)
+_PLANE_FLAGS = ("manhattan_found", "use_manhattan", "new_plane")
+# keyframe payload of the plane branch
+PLANE_PAYLOAD_KEYS = ("plane_coeffs", "plane_valid", "plane_support", "plane_cloud", "plane_npts")
 
 
 def pull_summary(result: dict) -> dict:
     """What the host state machine reads every frame, as numpy."""
-    return {k: result[k].cpu().numpy() for k in SUMMARY_KEYS}
+    out = {k: result[k].cpu().numpy() for k in SUMMARY_KEYS}
+    if "plane_valid" in result:
+        flags = [result[k].to(torch.int32)[..., None] for k in _PLANE_FLAGS]
+        flat = torch.cat(flags + [result["plane_assoc"], result["plane_valid"].to(torch.int32)], -1)
+        flat = flat.cpu().numpy()
+        P = result["plane_assoc"].shape[-1]
+        for i, k in enumerate(_PLANE_FLAGS):
+            out[k] = flat[..., i] > 0
+        out["plane_assoc"] = flat[..., 3 : 3 + P]
+        out["plane_valid"] = flat[..., 3 + P :] > 0
+    return out
 
 
 def pull_feats(result: dict) -> dict:
@@ -380,3 +669,8 @@ def pull_feats(result: dict) -> dict:
     feats = {k: v.cpu().numpy() for k, v in result["feats"].items()}
     feats["desc"] = feats["desc"].view(np.uint32)
     return feats
+
+
+def pull_planes(result: dict) -> dict:
+    """The frame's planes as numpy (keyframe payload)."""
+    return {k: result[k].cpu().numpy() for k in PLANE_PAYLOAD_KEYS}

@@ -3,13 +3,17 @@ manhattanslam_tpu/frontend/fast_tracking.py, one frame per step).
 
 Per frame: one upload (u8 gray + depth), one step on the device, one pull
 of the summary.  The map view on the device is refreshed only at keyframe
-events, where the host runs the reference's keyframe policy and creates
-map points from depth.  No threads: each call to ``track`` returns after
-its frame is finished.  Chunked dispatch, localization mode,
-relocalization and the mapping back end come with later slices.
+events, where the host runs the reference's keyframe policy, creates map
+points from depth and, with planes on, merges or adds the frame's planes
+and registers perpendicular pairs and triples in the Manhattan
+registries.  No threads: each call to ``track`` returns after its frame
+is finished.  Lines, chunked dispatch, localization mode, relocalization
+and the mapping back end come with later slices.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -18,19 +22,26 @@ from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend.tracking import LOST, NOT_INITIALIZED, OK, FrameRecord
 from manhattanslam_tpu_torch.geometry import se3
+from manhattanslam_tpu_torch.ops.planes import transform_plane_np
 from manhattanslam_tpu_torch.slam_map import SlamMap
 
 
 class FastTracker:
-    def __init__(self, cfg: SlamConfig, slam_map: SlamMap, device: torch.device):
+    def __init__(
+        self, cfg: SlamConfig, slam_map: SlamMap, device: torch.device, enable_planes: bool = False
+    ):
         self.cfg = cfg
         self.map = slam_map
         self.device = device
-        self.step = dt.build_frame_step(cfg, device)
+        self.enable_planes = enable_planes
+        self.step = dt.build_frame_step(cfg, device, enable_planes)
+        # Manhattan registries (host source of truth; the view mirrors them)
+        self.reg2, self.reg3 = dt.empty_registries(cfg)
         # the temporal VO bank anchors tracking while map coverage starves
         # (it engages only below 30 map inliers, device_tracker.py)
         self.carry = dt.init_carry(cfg, device, vo_points=True)
         self.view = None  # device map view
+        self.last_result = None
         self._shadow = None  # host snapshot of what the device view holds
         self.frame_log: list[tuple] = []  # (frame_id, n_inliers, ok, ref_matches, ref_total)
 
@@ -46,6 +57,8 @@ class FastTracker:
         self.min_frames = int(cfg.min_kf_frames)
         self._ref_matches = None  # cache; None = recompute (map/ref-KF changed)
         self._ref_total = 0
+        self.n_manhattan_frames = 0  # frames the Manhattan pose carried
+        self._new_plane_streak = 0
 
     # ------------------------------------------------------------------ API
     def track(self, timestamp: float, gray: np.ndarray, depth: np.ndarray):
@@ -59,6 +72,7 @@ class FastTracker:
             self._record(timestamp, lost=False)
             return self.T_cw.copy()
         result, self.carry = self.step(g8_t, d16_t, self.carry, self.view)
+        self.last_result = result  # the device result of the last frame
         return self._finish_frame(timestamp, result)
 
     def _finish_frame(self, timestamp: float, result: dict) -> np.ndarray | None:
@@ -82,6 +96,8 @@ class FastTracker:
         self.T_cw = s["T"].astype(np.float32)
         self.n_inliers = int(s["n_inliers"])
         self.n_map_inliers = int(s["n_map_inliers"])
+        if bool(s.get("use_manhattan", False)):
+            self.n_manhattan_frames += 1
         # landmark statistics (MapPoint::IncreaseVisible / IncreaseFound)
         m = self.map
         vis = s["visible"] & m.mp_valid
@@ -95,10 +111,11 @@ class FastTracker:
     # ------------------------------------------------------------- keyframe
     def _need_new_keyframe(self, s: dict, frame_id: int) -> bool:
         """NeedNewKeyFrame (Tracking.cc:1433-1508) as the reference package
-        decides it for points: past the min-frames hysteresis, a keyframe
-        when map matches fall below a share of the reference keyframe's
-        well-observed points (or close points go untracked) while the pose
-        still has more than 15 inliers."""
+        decides it for points and planes: past the min-frames hysteresis, a
+        keyframe when map matches fall below a share of the reference
+        keyframe's well-observed points (or close points go untracked), or
+        when a new plane persists, while the pose still has more than 15
+        inliers."""
         m = self.map
         c = self.cfg.caps
         free_kf = (c.max_keyframes - m.n_kf) + len(m.kf_free)
@@ -106,6 +123,10 @@ class FastTracker:
             return False
         n_kfs = m.n_kf - len(m.kf_free)  # live keyframes
         since_kf = frame_id - self.last_kf_frame_id
+        # a frame plane with no map association, seen on >= 2 consecutive
+        # frames (Tracking.cc:1494; a one-frame flicker mints nothing)
+        new_plane = bool(s.get("new_plane", False))
+        self._new_plane_streak = self._new_plane_streak + 1 if new_plane else 0
         if since_kf < self.min_frames:
             return False
         # TrackedMapPoints(nMinObs): ref-KF matches with >= nMinObs
@@ -125,9 +146,13 @@ class FastTracker:
                 self._ref_total = 0
         th_ref = 0.75 if n_kfs > 2 else 0.4
         need_close = int(s["tracked_close"]) < 100 and int(s["nontracked_close"]) > 70
-        return (
+        c2 = (
             self.n_map_inliers < self._ref_matches * th_ref or need_close
         ) and self.n_inliers > 15
+        decision = c2 or (self._new_plane_streak >= 2 and self.n_inliers > 15)
+        if decision:
+            self._new_plane_streak = 0
+        return decision
 
     def _create_keyframe(self, timestamp, result, s, frame_id) -> None:
         m = self.map
@@ -136,6 +161,8 @@ class FastTracker:
         # new map points from depth (close-first, cap 100)
         mp_idx = self._create_points_from_depth(feats_np, kf_id, s["kp_mp"])
         m.set_kf_matches(kf_id, mp_idx)
+        if self.enable_planes:
+            self._kf_planes(kf_id, dt.pull_planes(result), s["plane_assoc"])
         self.ref_kf = kf_id
         self.last_kf_frame_id = frame_id
         self._ref_matches = None
@@ -181,6 +208,56 @@ class FastTracker:
         out[chosen] = ids
         return out
 
+    def _kf_planes(self, kf_id: int, planes: dict, assoc: np.ndarray) -> None:
+        """The keyframe's planes: an associated one merges its world-frame
+        cloud into its map plane, a new one becomes a map plane; then every
+        perpendicular pair and triple of them is registered with this
+        keyframe (LocalMapping.cc:172-218)."""
+        m = self.map
+        T_wc = np.linalg.inv(self.T_cw)
+        P = self.cfg.caps.max_planes_frame
+        assoc = assoc.copy()
+        for i in range(P):
+            if not planes["plane_valid"][i]:
+                continue
+            cloud_c = planes["plane_cloud"][i][: planes["plane_npts"][i]]
+            cloud_w = cloud_c @ T_wc[:3, :3].T + T_wc[:3, 3]
+            j = int(assoc[i])
+            if j >= 0 and m.pl_valid[j]:
+                m.merge_plane_points(j, cloud_w)
+                m.pl_n_obs[j] += 1
+            else:
+                if (~m.pl_valid).sum() == 0:
+                    continue
+                pi_w = transform_plane_np(T_wc, planes["plane_coeffs"][i])
+                j = m.add_plane(pi_w, cloud_w, kf_id)
+                assoc[i] = j
+            m.kf_pl_idx[kf_id, i] = j
+            m.kf_plane_coeffs[kf_id, i] = planes["plane_coeffs"][i]
+            m.kf_plane_npts[kf_id, i] = planes["plane_support"][i]
+
+        # Manhattan registration of the associated planes
+        th = self.cfg.plane.mf_vertical_threshold
+        ids = [i for i in range(P) if planes["plane_valid"][i] and assoc[i] >= 0]
+        normal = planes["plane_coeffs"][:, :3]
+        for a, i in enumerate(ids):
+            for b in range(a + 1, len(ids)):
+                j = ids[b]
+                if abs(float(normal[i] @ normal[j])) > th:
+                    continue
+                pa, pb = int(assoc[i]), int(assoc[j])
+                if self.reg2[pa, pb] < 0:
+                    self.reg2[pa, pb] = self.reg2[pb, pa] = kf_id
+                    m.add_manhattan_pair(pa, pb, kf_id)
+                for k in ids[b + 1:]:
+                    if abs(float(normal[i] @ normal[k])) > th or abs(float(normal[j] @ normal[k])) > th:
+                        continue
+                    trip = (pa, pb, int(assoc[k]))
+                    if self.reg3[trip] < 0:
+                        for perm in itertools.permutations(trip):
+                            self.reg3[perm] = kf_id
+                        m.add_manhattan_triple(*trip, kf_id)
+
     # ------------------------------------------------------- initialization
     def _initialize(self, timestamp, g8_t, d16_t) -> None:
         """First frame: its features become keyframe 0 with every depth
@@ -196,6 +273,9 @@ class FastTracker:
             max_new=10**9,
         )
         m.set_kf_matches(kf_id, mp_idx)
+        if self.enable_planes:
+            P = self.cfg.caps.max_planes_frame
+            self._kf_planes(kf_id, dt.pull_planes(result), np.full(P, -1, np.int32))
         self.ref_kf = kf_id
         self.last_kf_frame_id = self.frame_id
         self.state = OK
@@ -203,7 +283,7 @@ class FastTracker:
 
     def refresh_view(self) -> None:
         """Bring the device map view up to the host map (row diff)."""
-        host = dt.build_host_view(self.cfg, self.map, self.ref_kf)
+        host = dt.build_host_view(self.cfg, self.map, self.ref_kf, self.reg2, self.reg3)
         if self.view is None:
             self.view = dt.upload_view(host, self.device)
         else:

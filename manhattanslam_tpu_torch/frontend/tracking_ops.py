@@ -1,10 +1,15 @@
 """Match-and-solve composites of the tracking hot path (counterpart of
-manhattanslam_tpu/frontend/tracking_ops.py, points only).
+manhattanslam_tpu/frontend/tracking_ops.py, points and planes).
 
 Projection matching (TrackWithMotionModel / TrackLocalMap) and pure
 descriptor matching against the reference keyframe (TrackReferenceKeyFrame)
-each become a keypoint-indexed ``PoseProblem``; ``track_projection`` adds
-the solve and the match bookkeeping.
+each become a keypoint-indexed ``PoseProblem`` that also carries the
+frame's plane associations (``PlaneObs``); ``track_projection`` adds the
+solve, with the rotation frozen for the Manhattan decoupled solve
+(``translation_only``), and the match bookkeeping.  The reference's
+``track_descriptors`` (descriptor matching + solve) runs inside the fused
+step's batched Manhattan solve (frontend/device_tracker.py), whose
+descriptor problem is the candidate stage's with the plane observations.
 
 The functions take one frame's arrays or B streams' arrays with a leading
 stream axis (the reference's vmapped replay).  A PoseProblem always has
@@ -13,26 +18,59 @@ one batch axis: B streams give a batch of B, one frame a batch of one.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from manhattanslam_tpu_torch.ops import lm, matching
 
 
+class PlaneObs(NamedTuple):
+    """Per-frame plane associations (..., P, 4): the world coeffs of the
+    matched map plane and the observed camera-frame coeffs, for the
+    matched, parallel and perpendicular map planes; masks (..., P)."""
+
+    pl_w: torch.Tensor
+    pl_obs: torch.Tensor
+    pl_mask: torch.Tensor
+    par_w: torch.Tensor
+    par_obs: torch.Tensor
+    par_mask: torch.Tensor
+    ver_w: torch.Tensor
+    ver_obs: torch.Tensor
+    ver_mask: torch.Tensor
+
+
+def empty_plane_obs(np_: int = 8, lead: tuple = (), device=None) -> PlaneObs:
+    """No plane observations: np_ masked-out rows per family."""
+    z = torch.zeros(lead + (np_, 4), device=device)
+    off = torch.zeros(lead + (np_,), dtype=torch.bool, device=device)
+    return PlaneObs(z, z, off, z, z, off, z, z, off)
+
+
 def build_point_problem(
-    pts_pos: torch.Tensor, kp_idx: torch.Tensor, matched: torch.Tensor, feats: dict
+    pts_pos: torch.Tensor,
+    kp_idx: torch.Tensor,
+    matched: torch.Tensor,
+    feats: dict,
+    plane_obs: PlaneObs | None = None,
 ) -> lm.PoseProblem:
     """Gather matched observations into a (B, N) PoseProblem (B = 1 for
     one frame's (N,) arrays): stereo (u, v, uR) when the keypoint has depth
-    (uR > 0), mono otherwise."""
+    (uR > 0), mono otherwise; plus the plane observations (none when
+    plane_obs is None)."""
     kp = kp_idx.long()
     uv = matching.take_rows(feats["xy_und"], kp)
     ur = feats["u_right"].gather(-1, kp)
+    if plane_obs is None:
+        plane_obs = empty_plane_obs(0, kp.shape[:-1], kp.device)
     prob = lm.PoseProblem(
-        pt_xw=pts_pos,
-        pt_obs=torch.cat([uv, ur[..., None]], -1),
-        pt_info=feats["inv_sigma2"].gather(-1, kp),
-        pt_stereo=ur > 0,
-        pt_mask=matched,
+        pts_pos,
+        torch.cat([uv, ur[..., None]], -1),
+        feats["inv_sigma2"].gather(-1, kp),
+        ur > 0,
+        matched,
+        *plane_obs,
     )
     return prob if kp.dim() == 2 else lm.PoseProblem(*(f[None] for f in prob))
 
@@ -47,10 +85,12 @@ def projection_problem(
     cand: dict,
     scale_factor: float = 1.2,
     bank_stats: bool = True,
+    plane_obs: PlaneObs | None = None,
 ) -> tuple[lm.PoseProblem, dict]:
     """Projection matching in the shared frustum candidate set `cand`
-    (matching.frustum_candidates) -> keypoint-indexed PoseProblem (no
-    solve).  bank_stats=False skips the bank-level scatter outputs."""
+    (matching.frustum_candidates) -> keypoint-indexed PoseProblem with the
+    plane observations (no solve).  bank_stats=False skips the bank-level
+    scatter outputs."""
     n_kp = feats["desc"].shape[-2]
     n_bank = pts["pos"].shape[-2]
     CAND = cand["pos"].shape[-2]
@@ -89,7 +129,7 @@ def projection_problem(
     prob = build_point_problem(
         matching.take_rows(cand["pos"], safe_c),
         torch.arange(n_kp, dtype=torch.int32, device=tgt.device).expand(matched_kp.shape),
-        matched_kp, feats,
+        matched_kp, feats, plane_obs,
     )
     aux = {
         "point_of_kp": point_of_kp,
@@ -120,6 +160,7 @@ def projection_post(out: dict, aux: dict, n_bank: int) -> dict:
         "T": out["T"],
         "kp_mp": torch.where(kp_inlier, point_of_kp, -1),
         "kp_inlier": kp_inlier,
+        "inlier_pl": out["inlier_pl"],
         "n_matches": aux["n_matches"],
         "n_pt_inliers": hit.sum(-1),
         "visible": aux["visible"],
@@ -151,22 +192,27 @@ def track_projection(
     n_iters: int = 10,
     gauss_newton: bool = False,
     bank_stats: bool = True,
+    plane_obs: PlaneObs | None = None,
+    params: lm.SolveParams | None = None,
+    translation_only: bool = False,
+    use_planes: bool = False,
 ) -> dict:
     """Project each stream's landmark bank (B, N, ...) from its seed pose
     T_seed (B, 4, 4), match, solve: one batch of B problems."""
     prob, aux = projection_problem(
         pts, T_seed, feats, K, radius, image_hw, cand,
-        scale_factor=scale_factor, bank_stats=bank_stats,
+        scale_factor=scale_factor, bank_stats=bank_stats, plane_obs=plane_obs,
     )
     out = lm.solve_pose(
-        prob, T_seed, K, bf, n_rounds=n_rounds, n_iters=n_iters,
-        gauss_newton=gauss_newton,
+        prob, T_seed, K, bf, params, translation_only=translation_only,
+        n_rounds=n_rounds, n_iters=n_iters, gauss_newton=gauss_newton,
+        use_planes=use_planes,
     )
     return projection_post(out, aux, pts["pos"].shape[-2])
 
 
 def descriptor_problem(
-    pts: dict, feats: dict, kf_angles: torch.Tensor
+    pts: dict, feats: dict, kf_angles: torch.Tensor, plane_obs: PlaneObs | None = None
 ) -> tuple[lm.PoseProblem, torch.Tensor, torch.Tensor]:
     """Pure-descriptor matching -> PoseProblem (no solve): SearchByBoW
     semantics (NN ratio 0.7, TH_LOW, rotation-histogram filter) minus the
@@ -177,4 +223,4 @@ def descriptor_problem(
     )
     ok = matching.rotation_consistency_mask(kf_angles, feats["angle"].gather(-1, idx.long()), ok)
     ok = matching.resolve_one_to_one(idx, dist, ok, feats["desc"].shape[-2])
-    return build_point_problem(pts["pos"], idx, ok, feats), idx, ok
+    return build_point_problem(pts["pos"], idx, ok, feats, plane_obs), idx, ok

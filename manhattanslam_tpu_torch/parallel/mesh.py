@@ -6,35 +6,32 @@ B independent sequence streams are tracked by one step against ONE shared
 map view (localization / replay mode).  The step is the fused frame body
 with a leading stream axis (``device_tracker.build_batched_body``), the
 counterpart of the reference's ``jax.vmap(body, in_axes=(0, 0, None))``
-of its points-only part: each op and each CUDA kernel launch serves all
-B streams, so a step launches as many kernels at B = 8 as at B = 1.  The reference's multi-device entries (``make_mesh``,
+with points, planes and the Manhattan pose (the reference's body also runs
+lines, which are not ported yet): each op and each CUDA kernel launch
+serves all B streams, so a step launches as many kernels at B = 8 as at
+B = 1.  The reference's multi-device entries (``make_mesh``,
 ``build_batched_track_step``, ``sharded_hamming_argmin``) are not ported
 yet.
 """
 
 from __future__ import annotations
 
-import torch
-
 from manhattanslam_tpu_torch import resolve_device
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 
 # what the step returns per stream (the reference's replay summary)
-_TRACK_KEYS = ("T", "tracked_ok", "n_inliers", "n_matches")
-RESULT_KEYS = _TRACK_KEYS + ("manhattan_found", "use_manhattan")
+RESULT_KEYS = ("T", "tracked_ok", "n_inliers", "n_matches", "manhattan_found", "use_manhattan")
 
 
-def build_throughput_step(cfg: SlamConfig, batch: int, device=None):
+def build_throughput_step(cfg: SlamConfig, batch: int, device=None, enable_planes: bool = True):
     """Returns step(gray8 (B,H,W) uint8, d16 (B,H,W) int32 in DEPTH_QUANT
     units, carry (batched), view (shared)) -> (result, new_carry): each
-    result value has a leading axis of `batch` streams.  The step is the
-    points-only body: ``manhattan_found`` and ``use_manhattan`` are fixed
-    False until planes are ported.  The reference's step runs the full
-    body, planes and lines included (its ``build_frame_body`` defaults,
-    manhattanslam_tpu/parallel/mesh.py:110)."""
+    result value has a leading axis of `batch` streams, ``manhattan_found``
+    and ``use_manhattan`` as the plane branch computes them (False with
+    enable_planes=False, the points-only body)."""
     device = resolve_device(device)
-    body = dt.build_batched_body(cfg, device)
+    body = dt.build_batched_body(cfg, device, enable_planes)
     hw = (cfg.camera.height, cfg.camera.width)
 
     def step(gray8, d16, carry, view):
@@ -46,11 +43,7 @@ def build_throughput_step(cfg: SlamConfig, batch: int, device=None):
         if gray8.device.type != device.type or d16.device.type != device.type:
             raise ValueError(f"throughput step: frames must be on {device}")
         result, new_carry = body(*dt.frame_to_float(gray8, d16), carry, view)
-        out = {k: result[k] for k in _TRACK_KEYS}
-        off = torch.zeros(batch, dtype=torch.bool, device=device)
-        out["manhattan_found"] = off
-        out["use_manhattan"] = off
-        return out, new_carry
+        return {k: result[k] for k in RESULT_KEYS}, new_carry
 
     return step
 

@@ -1,12 +1,13 @@
-"""The world model's point and keyframe tables (counterpart of
-manhattanslam_tpu/slam_map.py).
+"""The world model's point, plane and keyframe tables and the Manhattan
+registries (counterpart of manhattanslam_tpu/slam_map.py).
 
 Capacity-bounded numpy arrays with validity masks on the host, exactly the
 reference package's layout; the tracker uploads a device view of the
 tracking-relevant rows (frontend/device_tracker.py).  Descriptors are
 kept as uint32 words here and cross to the device as int32 with the same
-bits.  Lines, planes, the Manhattan registries and keyframe retirement
-come with the slices that use them.
+bits.  The Manhattan registries map unordered plane-id pairs and triples
+to the keyframe that first saw them mutually perpendicular (Map.cc:247-285).
+Lines and keyframe retirement come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -36,6 +37,16 @@ class SlamMap:
         self.mp_found = np.ones(P, np.int32)
         self.mp_first_kf = np.full(P, -1, np.int32)
 
+        # --- map planes (MapPlane.h) ---
+        PL = c.max_map_planes
+        self.pl_coeffs = np.zeros((PL, 4), np.float32)  # world Hesse, w >= 0
+        self.pl_pts = np.zeros((PL, c.max_map_plane_points, 3), np.float32)
+        self.pl_n_pts = np.zeros(PL, np.int32)
+        self.pl_valid = np.zeros(PL, bool)
+        self.pl_n_obs = np.zeros(PL, np.int32)
+        self.pl_first_kf = np.full(PL, -1, np.int32)
+        self.pl_color = np.zeros((PL, 3), np.float32)
+
         # --- keyframes (KeyFrame.h) ---
         KF = c.max_keyframes
         self.kf_pose = np.zeros((KF, 4, 4), np.float32)  # Tcw
@@ -50,6 +61,11 @@ class SlamMap:
         self.kf_desc = np.zeros((KF, n_kp, 8), np.uint32)
         self.kf_kp_valid = np.zeros((KF, n_kp), bool)
         self.kf_mp_idx = np.full((KF, n_kp), -1, np.int32)  # kp -> map point
+        self.kf_pl_idx = np.full((KF, c.max_planes_frame), -1, np.int32)
+        # per-KF camera-frame plane observations (DetectManhattan's MFm,
+        # Tracking.cc:731-738)
+        self.kf_plane_coeffs = np.zeros((KF, c.max_planes_frame, 4), np.float32)
+        self.kf_plane_npts = np.zeros((KF, c.max_planes_frame), np.int32)
         # covisibility weight matrix (shared map points, KeyFrame.cc:273)
         self.covis = np.zeros((KF, KF), np.int32)
         # spanning tree parent (KeyFrame mTcp chain for trajectory replay)
@@ -58,6 +74,13 @@ class SlamMap:
         self.n_kf = 0  # high-water mark of allocated keyframe slots
         self.kf_free: list[int] = []  # retired slots available for reuse
         self.last_kf_added = -1  # spanning-tree parent for the next KF
+
+        # Manhattan registries: sorted plane-id tuple -> kf id
+        self.manhattan_pairs: dict[tuple, int] = {}
+        self.manhattan_triples: dict[tuple, int] = {}
+        # keyframes pinned by the registries (SetNotErase, Map.cc:253,:273)
+        self.kf_not_erase: set[int] = set()
+        self._rng = np.random.default_rng(0)  # plane colours
 
     # ---------------------------------------------------------------- points
     def alloc_points(self, n: int) -> np.ndarray:
@@ -91,6 +114,46 @@ class SlamMap:
         self.mp_first_kf[idx] = kf_id
         return idx
 
+    # --------------------------------------------------------------- planes
+    def add_plane(self, coeffs: np.ndarray, pts: np.ndarray, kf_id: int) -> int:
+        """A new map plane in the lowest free slot; returns its id."""
+        free = np.nonzero(~self.pl_valid)[0]
+        if len(free) == 0:
+            raise RuntimeError("map plane capacity exhausted")
+        i = int(free[0])
+        self.pl_coeffs[i] = coeffs
+        k = min(len(pts), self.pl_pts.shape[1])
+        self.pl_pts[i, :k] = pts[:k]
+        self.pl_n_pts[i] = k
+        self.pl_valid[i] = True
+        self.pl_n_obs[i] = 1
+        self.pl_first_kf[i] = kf_id
+        self.pl_color[i] = self._rng.uniform(0.2, 1.0, 3)
+        return i
+
+    def merge_plane_points(self, i: int, pts: np.ndarray, voxel: float = 0.2) -> None:
+        """MapPlane::UpdateCoefficientsAndPoints (MapPlane.cc:178-218):
+        merge, voxel-downsample, cap, and refit the coefficients by least
+        squares on the merged cloud, keeping the original orientation."""
+        cur = self.pl_pts[i, : self.pl_n_pts[i]]
+        allp = np.concatenate([cur, pts], 0)
+        key = np.floor(allp / voxel).astype(np.int64)
+        _, keep = np.unique(key, axis=0, return_index=True)
+        allp = allp[np.sort(keep)]
+        cap = self.pl_pts.shape[1]
+        if len(allp) > cap:
+            allp = allp[np.linspace(0, len(allp) - 1, cap).astype(int)]
+        self.pl_pts[i, : len(allp)] = allp
+        self.pl_n_pts[i] = len(allp)
+        if len(allp) >= 8:
+            mean = allp.mean(0)
+            cen = allp - mean
+            _, v = np.linalg.eigh(cen.T @ cen / len(allp))
+            n = v[:, 0]  # smallest-eigenvalue direction
+            if float(n @ self.pl_coeffs[i, :3]) < 0:
+                n = -n
+            self.pl_coeffs[i] = np.concatenate([n, [-float(n @ mean)]]).astype(np.float32)
+
     # ------------------------------------------------------------ keyframes
     def add_keyframe(
         self, T_cw: np.ndarray, timestamp: float, frame_id: int, feats_np: dict
@@ -116,6 +179,9 @@ class SlamMap:
         self.kf_desc[i] = feats_np["desc"]
         self.kf_kp_valid[i] = feats_np["valid"]
         self.kf_mp_idx[i] = -1
+        self.kf_pl_idx[i] = -1
+        self.kf_plane_coeffs[i] = 0
+        self.kf_plane_npts[i] = 0
         self.covis[i, :] = 0
         self.covis[:, i] = 0
         self.kf_parent[i] = self.last_kf_added
@@ -141,3 +207,20 @@ class SlamMap:
         w[kf_id] = 0
         self.covis[kf_id, : self.n_kf] = w
         self.covis[: self.n_kf, kf_id] = w
+
+    # --------------------------------------------------- Manhattan registry
+    @staticmethod
+    def _key(*ids: int) -> tuple:
+        return tuple(sorted(int(i) for i in ids))
+
+    def add_manhattan_pair(self, p1: int, p2: int, kf_id: int) -> None:
+        key = self._key(p1, p2)
+        if key not in self.manhattan_pairs:
+            self.manhattan_pairs[key] = kf_id
+            self.kf_not_erase.add(kf_id)
+
+    def add_manhattan_triple(self, p1: int, p2: int, p3: int, kf_id: int) -> None:
+        key = self._key(p1, p2, p3)
+        if key not in self.manhattan_triples:
+            self.manhattan_triples[key] = kf_id
+            self.kf_not_erase.add(kf_id)

@@ -1,11 +1,13 @@
 """System facade (counterpart of manhattanslam_tpu/system.py), for the
-points-only fused tracker.
+fused tracker with points and, on request, planes and Manhattan frames.
 
 Construct from a settings file or a SlamConfig, feed RGB-D frames through
-``track``, save TUM trajectories.  This slice runs ``fast=True`` with one
-frame per step and no pipeline, without planes, lines, surfels, the
-mapping back end or relocalization; asking for any of those raises
-``NotImplementedError`` naming the slice that brings it.
+``track``, save TUM trajectories.  The port runs ``fast=True`` with one
+frame per step and no pipeline; ``enable_planes=True`` adds plane
+extraction, plane residuals and the Manhattan decoupled pose.  Lines,
+surfels, the mapping back end and relocalization are not ported yet:
+asking for lines, surfels, chunks, the pipeline or the modular tracker
+raises ``NotImplementedError`` naming the slice that brings it.
 
 The system runs on CUDA unless ``device`` says otherwise; with no GPU it
 raises rather than falling back to the CPU.
@@ -39,7 +41,6 @@ class System:
             "fast=False (the modular tracker)": not fast,
             "chunk>1 (chunk mode, keyframes at chunk boundaries)": chunk > 1,
             "pipeline=True (chunk mode slice)": pipeline,
-            "enable_planes=True (planes and Manhattan slice)": enable_planes,
             "enable_lines=True (lines slice)": enable_lines,
             "enable_surfels=True (surfels slice)": enable_surfels,
         }
@@ -50,8 +51,9 @@ class System:
             )
         self.cfg = settings if isinstance(settings, SlamConfig) else load_config(settings)
         self.device = resolve_device(device)
+        self.enable_planes = enable_planes
         self.map = SlamMap(self.cfg)
-        self.tracker = FastTracker(self.cfg, self.map, self.device)
+        self.tracker = FastTracker(self.cfg, self.map, self.device, enable_planes)
 
     def track(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float):
         """Process one frame.  rgb: (H,W,3) uint8 or (H,W) gray; depth:
@@ -73,7 +75,7 @@ class System:
     def reset(self) -> None:
         """System reset (Tracking::Reset, Tracking.cc:2057-2087)."""
         self.map = SlamMap(self.cfg)
-        self.tracker = FastTracker(self.cfg, self.map, self.device)
+        self.tracker = FastTracker(self.cfg, self.map, self.device, self.enable_planes)
 
     def shutdown(self) -> None:
         """Nothing is in flight: every track() call finishes its frame."""

@@ -8,17 +8,20 @@ it also runs on a machine with a GPU and no JAX:
 """
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from manhattanslam_tpu_torch.config import CameraConfig, CapacityConfig, OrbConfig, SlamConfig
+from manhattanslam_tpu_torch.config import (
+    CameraConfig, CapacityConfig, OrbConfig, SlamConfig, load_config,
+)
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
 from manhattanslam_tpu_torch.io import trajectory as traj_io
-from manhattanslam_tpu_torch.ops import fast, image, kernel_build, orb
+from manhattanslam_tpu_torch.ops import fast, image, kernel_build, orb, planes
 from manhattanslam_tpu_torch.parallel import mesh, replay
 from manhattanslam_tpu_torch.system import System
 
@@ -317,9 +320,10 @@ def test_extractor_launches_fast_and_ic_angle_once_per_frame(cuda, b):
 
 
 def test_replay_step_matches_single_stream_step(cuda):
-    """The batched replay on the card, 3 streams at different frame offsets
-    against the shared view of keyframe 0: each stream's pose within 1e-3 m
-    and 1e-3 rad of the single-stream step on the same frame and carry,
+    """The batched replay (plane branch on) on the card, 3 streams at
+    different frame offsets against the shared view of keyframe 0: each
+    stream's pose within 1e-3 m and 1e-3 rad of the single-stream step on
+    the same frame and carry,
     every stream tracked, FAST, IC angle and BRIEF each launched once per
     step whatever the number of streams."""
     cfg = _small_cfg()
@@ -329,7 +333,7 @@ def test_replay_step_matches_single_stream_step(cuda):
     view, _ = replay.shared_view(cfg, frames[0], cuda)
     native = [dt.to_native(g, d) for _, g, d in frames]
     step = mesh.build_throughput_step(cfg, len(first), cuda)
-    single = dt.build_frame_step(cfg, cuda)
+    single = dt.build_frame_step(cfg, cuda, enable_planes=True)
     carry = replay.start_carry(cfg, seq, first, cuda)
     for i in range(3):
         g8, d16 = replay.step_frames(native, first, i, cuda)
@@ -369,4 +373,57 @@ def test_system_on_cuda_matches_cpu(cuda):
     gt = seq.gt_rows()
     ts_all = np.array([r[0] for r in gt])
     assert traj_io.ate_rmse((ts_all, pos_gpu), (ts_all, np.array([r[1] for r in gt]))) < 0.05
+    assert np.sqrt(((pos_gpu - pos_cpu) ** 2).sum(1).mean()) < 1e-2
+
+
+def _corner_depths(cfg, frames):
+    seq = SyntheticSequence(n_frames=max(frames) + 1, cam=cfg.camera, view="corner")
+    d16 = [dt.to_native(*seq.frame(i)[1:])[1].astype(np.int32) for i in frames]
+    return torch.from_numpy(np.stack(d16)).to(torch.float32) * float(np.float32(1 / dt.DEPTH_QUANT))
+
+
+def test_plane_extraction_on_card_matches_cpu(cuda):
+    """The plane extraction of three 640x480 corner frames at TUM1 (one
+    call for the three streams) on the card against the CPU: the hash
+    priorities equal; valid, n_pts equal; normals within 1e-4 and d within
+    1e-4 of |d|; membership equal on 99% of the plane pixels (the fits'
+    float32 sums run in another order on the card)."""
+    cfg = load_config(str(Path(__file__).resolve().parent.parent / "configs" / "TUM1.yaml"))
+    depth = _corner_depths(cfg, (0, 10, 20))
+    K = torch.from_numpy(cfg.camera.K)
+    h2, w2 = cfg.camera.height // 2, cfg.camera.width // 2
+    args = (8, 512, (h2 // 10, w2 // 10), float(np.float32(0.04 * h2 * w2)), 0.04)
+    assert torch.equal(planes.hash_priorities(h2 * w2, cuda).cpu(),
+                       planes.hash_priorities(h2 * w2, torch.device("cpu")))
+    gpu = planes.extract_planes_device(depth.to(cuda), K.to(cuda), *args)
+    cpu = planes.extract_planes_device(depth, K, *args)
+    gpu = {k: v.cpu() for k, v in gpu.items()}
+    assert torch.equal(gpu["valid"], cpu["valid"]) and bool(cpu["valid"].any())
+    assert torch.equal(gpu["n_pts"], cpu["n_pts"])
+    v = cpu["valid"]
+    assert float((gpu["coeffs"][v][:, :3] - cpu["coeffs"][v][:, :3]).abs().max()) <= 1e-4
+    d = cpu["coeffs"][v][:, 3]
+    assert bool(((gpu["coeffs"][v][:, 3] - d).abs() <= 1e-4 * d.abs()).all())
+    member = (gpu["membership"] >= 0) | (cpu["membership"] >= 0)
+    assert float((gpu["membership"] == cpu["membership"])[member].float().mean()) >= 0.99
+
+
+def test_system_with_planes_on_cuda_matches_cpu(cuda):
+    """The fused step with the plane branch: 12 corner frames at small_cfg
+    size through System(enable_planes=True) on the card and on the CPU,
+    all tracked, the Manhattan pose used on the same frames, the two
+    trajectories within the 1 cm RMS of test_system_on_cuda_matches_cpu
+    (the same scale-level knife edge)."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="corner")
+    gpu = System(cfg, enable_planes=True)
+    cpu = System(cfg, enable_planes=True, device="cpu")
+    for i in range(12):
+        ts, gray, depth = seq.frame(i)
+        a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
+        assert a is not None and b is not None, f"frame {i}"
+    assert gpu.tracker.n_manhattan_frames == cpu.tracker.n_manhattan_frames >= 1
+    assert gpu.map.manhattan_pairs == cpu.map.manhattan_pairs
+    pos_gpu = np.array([r[1] for r in gpu.tracker.trajectory_rows()])
+    pos_cpu = np.array([r[1] for r in cpu.tracker.trajectory_rows()])
     assert np.sqrt(((pos_gpu - pos_cpu) ** 2).sum(1).mean()) < 1e-2

@@ -8,13 +8,15 @@ batch-gridded kernel through its custom_vmap rule).  FAST scores and BRIEF
 words are exact; IC angles agree within 1e-4 rad (float32 moments in
 another order).  Each batched plain version equals a loop of single calls.
 
-The slice: the port's ``build_throughput_step`` at B = 2, two streams at
-different frame offsets, against the reference's points-only fused body
+The slice: the port's ``build_throughput_step`` at B = 2 with the plane
+branch on, two streams of the box room's "corner" view at different frame
+offsets, against the reference's fused body with planes on and lines off
 vmapped over the streams with one shared view (``mesh.py:104-126``, built
-here so nothing in the reference changes), both from the same view and the
-same carry.  Per stream and step: pose within 1e-3 m and 1e-3 rad (the two
-pyramids differ by float32 ulps, which can swap a keypoint at a coarse
-level), tracked_ok and n_inliers equal.
+here so nothing in the reference changes), both from the same view (with
+the map planes and Manhattan registries of keyframe 0) and the same carry.
+Per stream and step: pose within 1e-3 m and 1e-3 rad (the two pyramids
+differ by float32 ulps, which can swap a keypoint at a coarse level),
+tracked_ok, n_inliers, manhattan_found and use_manhattan equal.
 """
 
 import jax
@@ -150,8 +152,9 @@ def test_batched_grid_topk_with_more_streams_than_candidates():
 # ------------------------------------------------------------- the slice
 @pytest.fixture(scope="module")
 def replay(small_cfg):
-    """The shared view (keyframe 0 of the port's FastTracker: its depth
-    points with their distance bounds and keyframe matches), the reference
+    """The shared view (keyframe 0 of the port's FastTracker with planes on,
+    on the corner view: its depth points with their distance bounds and
+    keyframe matches, its planes and Manhattan registries), the reference
     map holding the same tables, the frames, and each stream's first pose.
 
     bench.py's replay map (max distance 30 m for every point, no keyframe
@@ -161,7 +164,7 @@ def replay(small_cfg):
     comes from the tracker's keyframe rule, and each stream starts at the
     ground-truth pose of its first frame (parallel/replay.py)."""
     pcfg = port_cfg(small_cfg)
-    seq = SyntheticSequence(n_frames=N_FRAMES, cam=pcfg.camera)
+    seq = SyntheticSequence(n_frames=N_FRAMES, cam=pcfg.camera, view="corner")
     frames = [seq.frame(i) for i in range(max(OFFSETS) + N_STEPS)]
     view, tracker = preplay.shared_view(pcfg, frames[0], CPU)
     jmap = JaxSlamMap(small_cfg)
@@ -170,7 +173,8 @@ def replay(small_cfg):
     for k in convert.MAP_SCALARS:
         setattr(jmap, k, getattr(tracker.map, k))
     kf = tracker.ref_kf
-    view_ref = jdt.set_ref_kf(jdt.build_map_view(small_cfg, jmap), jmap, kf)
+    view_ref = jdt.set_ref_kf(
+        jdt.build_map_view(small_cfg, jmap, tracker.reg2, tracker.reg3), jmap, kf)
     T0 = preplay.start_poses(seq, OFFSETS)
     native = [pdt.to_native(g, d) for _, g, d in frames]
     return pcfg, frames, native, view_ref, view, T0, int(tracker.map.mp_valid.sum())
@@ -180,7 +184,7 @@ def replay(small_cfg):
 def replay_runs(small_cfg, replay):
     pcfg, frames, native, view_ref, view, T0, _ = replay
     B = len(OFFSETS)
-    body = jdt.build_frame_body(small_cfg, use_pallas=False, enable_planes=False, enable_lines=False)
+    body = jdt.build_frame_body(small_cfg, use_pallas=False, enable_planes=True, enable_lines=False)
     w = small_cfg.camera.width
 
     def one(packed, carry, view):  # mirrors manhattanslam_tpu/parallel/mesh.py:104-126
@@ -219,22 +223,24 @@ def test_replay_matches_reference_vmapped_body(replay, replay_runs, stream):
         assert int(out["n_inliers"][stream]) == int(ref["n_inliers"][stream]), where
         assert bool(out["tracked_ok"][stream]), where
         for k in ("manhattan_found", "use_manhattan"):
-            assert not out[k][stream] and not ref[k][stream], where
+            assert bool(out[k][stream]) == bool(ref[k][stream]), (where, k)
+        assert bool(out["manhattan_found"][stream]), where  # the view's registries hold
 
 
 def test_batched_entry_at_b1_equals_single_body(replay):
-    """B = 1 through build_throughput_step is the single-stream step."""
+    """B = 1 through build_throughput_step is the single-stream step (both
+    with the plane branch)."""
     pcfg, _, native, _, view, T0, _ = replay
     carry_b = pmesh.init_batched_carry(pcfg, 1, CPU)
     carry_b["T_last"] = torch.from_numpy(T0[:1])
     carry = {k: v[0].clone() for k, v in carry_b.items()}
     step_b = pmesh.build_throughput_step(pcfg, 1, CPU)
-    step = pdt.build_frame_step(pcfg, CPU)
+    step = pdt.build_frame_step(pcfg, CPU, enable_planes=True)
     for i in range(2):
         g8, d16 = preplay.step_frames(native, OFFSETS[:1], i, CPU)
         out_b, carry_b = step_b(g8, d16, carry_b, view)
         res, carry = step(g8[0], d16[0], carry, view)
-        for k in ("T", "tracked_ok", "n_inliers", "n_matches"):
+        for k in pmesh.RESULT_KEYS:
             assert torch.equal(out_b[k][0], res[k]), (i, k)
         for k in carry:
             assert torch.equal(carry_b[k][0], carry[k]), (i, k)
@@ -244,7 +250,9 @@ def test_batched_entry_at_b1_equals_single_body(replay):
 def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, batch):
     """Whatever the number of streams, the FAST, IC angle and BRIEF
     wrappers are each called once per step for all pyramid levels (that
-    are large enough for the patch window)."""
+    are large enough for the patch window).  The extraction is the same
+    with or without the plane branch; the points-only step keeps this
+    test short."""
     pcfg, _, native, _, view, T0, _ = replay
     calls = {}
 
@@ -260,7 +268,7 @@ def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, bat
     spy(pfast, "fast_score_levels")
     spy(porb, "ic_angle_levels")
     spy(porb, "brief_levels")
-    step = pmesh.build_throughput_step(pcfg, batch, CPU)
+    step = pmesh.build_throughput_step(pcfg, batch, CPU, enable_planes=False)
     carry = pmesh.init_batched_carry(pcfg, batch, CPU)
     first = [OFFSETS[0] + s for s in range(batch)]
     n_steps = 2

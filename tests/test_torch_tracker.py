@@ -158,12 +158,26 @@ def test_init_carry_matches_reference_layout(small_cfg):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(fast=False), dict(chunk=4), dict(pipeline=True), dict(enable_planes=True),
+    [dict(fast=False), dict(chunk=4), dict(pipeline=True), dict(enable_planes=True, chunk=4),
      dict(enable_lines=True), dict(enable_surfels=True)],
 )
 def test_system_raises_for_later_slices(small_cfg, kwargs):
+    """Planes are ported; planes together with a later slice still raise."""
     with pytest.raises(NotImplementedError):
         System(port_cfg(small_cfg), device="cpu", **kwargs)
+
+
+def test_system_with_planes_tracks_the_corner_view(small_cfg):
+    """System(enable_planes=True) on the CPU: the corner view's frames are
+    tracked, the keyframe's planes become map planes with a Manhattan pair,
+    and the Manhattan pose carries frames."""
+    seq = SyntheticSequence(n_frames=4, cam=small_cfg.camera, view="corner")
+    system = System(port_cfg(small_cfg), enable_planes=True, device="cpu")
+    for i in range(4):
+        ts, gray, depth = seq.frame(i)
+        assert system.track(gray, depth, ts) is not None
+    assert int(system.map.pl_valid.sum()) >= 2 and len(system.map.manhattan_pairs) >= 1
+    assert system.tracker.n_manhattan_frames >= 1
 
 
 def test_system_needs_cuda_unless_cpu_is_asked(small_cfg):

@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Count the PyTorch operators of the port's frame step on the CPU.
+
+Usage (from the repository root; no GPU needed):
+
+    python3 tools/count_torch_ops.py
+
+A count, not a time: torch.profiler (CPU activity) over two frames of the
+box room's "corner" view at 192x144 (the parity tests' small config),
+through System on the CPU with planes off and on, prints the aten
+operators per frame; then the operators of one evaluation of the plane
+rows and of one linearization of them (ops/lm.py ``_plane_rows``) for one
+stream with 8 planes in each family.  On the card each operator that
+computes is about one kernel launch; launches themselves are counted on
+the card by tools/profile_torch_track.py.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from manhattanslam_tpu_torch.config import (  # noqa: E402
+    CameraConfig, CapacityConfig, OrbConfig, SlamConfig,
+)
+from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence  # noqa: E402
+from manhattanslam_tpu_torch.ops import lm  # noqa: E402
+from manhattanslam_tpu_torch.system import System  # noqa: E402
+
+
+def aten_ops(fn, repeat: int = 1) -> float:
+    """aten operators per call of fn, after one call outside the count."""
+    fn()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(repeat):
+            fn()
+    return sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / repeat
+
+
+def main() -> int:
+    cfg = SlamConfig(
+        camera=CameraConfig(fx=160.0, fy=160.0, cx=95.5, cy=71.5, k1=0, k2=0, p1=0, p2=0,
+                            k3=0, width=192, height=144, bf=12.0),
+        orb=OrbConfig(n_features=250),
+        caps=CapacityConfig(max_keypoints=256, max_lines=32, max_map_points=8192,
+                            max_map_lines=512, max_keyframes=64),
+    )
+    seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="corner")
+    frames = [seq.frame(i) for i in range(5)]
+    for planes in (False, True):
+        system = System(cfg, enable_planes=planes, device="cpu")
+        for ts, gray, depth in frames[:3]:
+            system.track(gray, depth, ts)
+        it = iter(frames[3:])
+
+        def one():
+            ts, gray, depth = next(it)
+            system.track(gray, depth, ts)
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            one()
+            one()
+        n = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / 2
+        print(f"frame step, planes {'on' if planes else 'off'}: {n:.0f} aten operators per frame")
+
+    gen = torch.Generator().manual_seed(0)
+
+    def planes_():
+        nrm = torch.randn(1, 8, 3, generator=gen)
+        return torch.cat([nrm / nrm.norm(dim=-1, keepdim=True), torch.randn(1, 8, 1, generator=gen)], -1)
+
+    on = torch.ones(1, 8, dtype=torch.bool)
+    none = [torch.zeros(1, 0, 3)] * 2 + [torch.zeros(1, 0)] + [torch.zeros(1, 0, dtype=torch.bool)] * 2
+    prob = lm.PoseProblem(*none, planes_(), planes_(), on, planes_(), planes_(), on,
+                          planes_(), planes_(), on)
+    T = torch.eye(4)[None]
+    masks = (on, on, on)
+    print(f"plane rows: {aten_ops(lambda: lm._plane_rows(T, prob, masks)):.0f} aten operators")
+    print(f"plane rows and their Jacobian: "
+          f"{aten_ops(lambda: lm._plane_rows(T, prob, masks, False)):.0f} aten operators")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

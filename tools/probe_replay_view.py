@@ -5,22 +5,24 @@ Usage (one CUDA card, from the repository root):
 
     python3 tools/probe_replay_view.py [--batch 8] [--steps 12]
 
-Runs the port's build_throughput_step with two shared views and two kinds
-of traffic, and prints, for each of the four runs, how many of the B
-streams were tracked on each step and the median inlier count.
+Runs the port's build_throughput_step (the plane and Manhattan branch on)
+with two shared views and two kinds of traffic, and prints, for each of
+the four runs, how many of the B streams were tracked on each step, on how
+many a Manhattan frame was found, and the median inlier count.
 
 Views:
 - ``bench``: bench.py's replay map (bench.py:47-71), built with the port:
   frame 0 through the step against an empty map, then up to 1000 of its
   back-projected depth keypoints as map points with normal (0, 0, 1),
   distance bounds [0, 30] m and no keyframe matches.
-- ``keyframe0``: keyframe 0 of the port's tracker (parallel/replay.py), the
-  view chip_smoke.py's replay phase uses.
+- ``keyframe0``: keyframe 0 of the port's tracker with planes on
+  (parallel/replay.py: its points, map planes and Manhattan registries),
+  the view chip_smoke.py's replay phase uses.
 
 Traffic:
 - ``bench``: bench.py's, the "corner" box-room sequence of 12 frames,
   stream s at frame (i + s) mod 12, every stream starting at the identity.
-- ``smoke``: chip_smoke.py's, the default box-room sequence of 30 frames,
+- ``smoke``: chip_smoke.py's, the corner sequence of steps + batch frames,
   stream s at frame s + i, starting at the ground-truth pose of frame s.
 """
 
@@ -67,9 +69,9 @@ def bench_view(cfg, frame0, dev) -> tuple[dict, int]:
     return dt.set_ref_kf(dt.build_map_view(cfg, m, dev), m, kf), len(sel)
 
 
-def run(cfg, dev, view, native, frame_at, carry, batch: int, steps: int) -> list[tuple[int, int]]:
-    """(streams tracked, median inliers) per step; frame_at(s, i) is the
-    frame index of stream s at step i."""
+def run(cfg, dev, view, native, frame_at, carry, batch: int, steps: int) -> list[tuple]:
+    """(streams tracked, streams with a Manhattan frame, median inliers)
+    per step; frame_at(s, i) is the frame index of stream s at step i."""
     step = mesh.build_throughput_step(cfg, batch, dev)
     per_step = []
     for i in range(steps):
@@ -77,7 +79,7 @@ def run(cfg, dev, view, native, frame_at, carry, batch: int, steps: int) -> list
         g8 = torch.from_numpy(np.stack([native[j][0] for j in idx])).to(dev)
         d16 = torch.from_numpy(np.stack([native[j][1].astype(np.int32) for j in idx])).to(dev)
         out, carry = step(g8, d16, carry, view)
-        per_step.append((int(out["tracked_ok"].sum()),
+        per_step.append((int(out["tracked_ok"].sum()), int(out["manhattan_found"].sum()),
                          int(statistics.median(out["n_inliers"].tolist()))))
     return per_step
 
@@ -85,7 +87,7 @@ def run(cfg, dev, view, native, frame_at, carry, batch: int, steps: int) -> list
 def probe(cfg, dev, batch: int, steps: int) -> dict:
     seqs = {
         "bench": SyntheticSequence(n_frames=BENCH_FRAMES, cam=cfg.camera, view="corner"),
-        "smoke": SyntheticSequence(n_frames=steps + batch, cam=cfg.camera),
+        "smoke": SyntheticSequence(n_frames=steps + batch, cam=cfg.camera, view="corner"),
     }
     frames = {k: [s.frame(i) for i in range(len(s.poses))] for k, s in seqs.items()}
     native = {k: [dt.to_native(g, d) for _, g, d in f] for k, f in frames.items()}
@@ -105,8 +107,9 @@ def probe(cfg, dev, batch: int, steps: int) -> dict:
             per_step = run(cfg, dev, view, native[traffic], frame_at, carry, batch, steps)
             results[(vname, traffic)] = per_step
             print(f"view {vname} ({n_points} points), traffic {traffic}: streams tracked "
-                  f"per step {[t for t, _ in per_step]} of {batch}; median inliers "
-                  f"{[n for _, n in per_step]}", flush=True)
+                  f"per step {[t for t, _, _ in per_step]} of {batch}; Manhattan found "
+                  f"{[m for _, m, _ in per_step]}; median inliers "
+                  f"{[n for _, _, n in per_step]}", flush=True)
     return results
 
 

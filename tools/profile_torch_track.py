@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Where a frame's time goes in the PyTorch port's points-only tracker.
+"""Where a frame's time goes in the PyTorch port's tracker.
 
 Usage (one CUDA card, from the repository root):
 
-    python3 tools/profile_torch_track.py [--frames 10] [--warmup 5] [--trace PATH]
-    python3 tools/profile_torch_track.py --replay 8 [--frames 10] [--warmup 2]
+    python3 tools/profile_torch_track.py [--planes] [--frames 10] [--warmup 5] [--trace PATH]
+    python3 tools/profile_torch_track.py --replay 8 [--planes] [--frames 10] [--warmup 2]
 
 Tracks the synthetic 640x480 box room at the TUM1 camera with the port's
-System, then profiles `--frames` frames with torch.profiler (CPU and CUDA
-activity) and prints: wall ms per frame, device kernel ms per frame and the
-device's busy share, the host-device synchronizations per frame, and the
+System (points only: the orbit view), then profiles `--frames` frames with
+torch.profiler (CPU and CUDA activity) and prints: wall ms per frame,
+device kernel ms per frame and the device's busy share, the host-device
+synchronizations per frame, the kernel launches per frame, and the
 operators and kernels that take the most time.  `--trace` also writes a
 Chrome trace.
 
-With `--replay B` it profiles the batched multi-sequence replay instead
-(parallel/mesh.py, as chip_smoke.py's replay phase drives it): B streams,
-stream s at frame offset s, against the shared view of keyframe 0; every
-"per frame" figure is then per batched step of B frames.
+`--planes` turns the plane and Manhattan branch on and tracks the
+"corner" view instead (chip_smoke.py's planes phase).  With `--replay B`
+it profiles the batched multi-sequence replay (parallel/mesh.py): B
+streams, stream s at frame offset s, against the shared view of keyframe
+0; with `--planes` that is chip_smoke.py's replay phase (the corner view,
+the plane branch on), without it the points-only body on the orbit view.
+Every "per frame" figure is then per batched step of B frames.
 """
 
 from __future__ import annotations
@@ -46,13 +50,13 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _replay_steps(cfg, seq, frames, batch: int, dev):
+def _replay_steps(cfg, seq, frames, batch: int, dev, planes: bool):
     """One callable per replay step of `batch` streams (upload + step),
     sharing a carry: the traffic of chip_smoke.py's replay phase
     (parallel/replay.py)."""
     view, _ = replay.shared_view(cfg, frames[0], dev)
     native = [dt.to_native(g, d) for _, g, d in frames]
-    step = mesh.build_throughput_step(cfg, batch, dev)
+    step = mesh.build_throughput_step(cfg, batch, dev, enable_planes=planes)
     first = list(range(batch))
     state = {"carry": replay.start_carry(cfg, seq, first, dev)}
 
@@ -70,6 +74,8 @@ def main() -> int:
     ap.add_argument("--trace", default=None)
     ap.add_argument("--replay", type=int, default=0, metavar="B",
                     help="profile the batched replay of B streams instead")
+    ap.add_argument("--planes", action="store_true",
+                    help="the plane and Manhattan branch on, on the corner view")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_track: needs a CUDA device", file=sys.stderr)
@@ -78,16 +84,17 @@ def main() -> int:
     cfg = load_config(os.path.join(root, "configs", "TUM1.yaml"))
     n = args.warmup + args.frames
     dev = torch.device("cuda")
+    view = "corner" if args.planes else "wall"
     if args.replay:
         # a sequence long enough that no stream wraps around
-        seq = SyntheticSequence(n_frames=max(30, n + args.replay), cam=cfg.camera)
+        seq = SyntheticSequence(n_frames=max(30, n + args.replay), cam=cfg.camera, view=view)
         frames = [seq.frame(i) for i in range(n + args.replay)]
-        run = _replay_steps(cfg, seq, frames, args.replay, dev)
+        run = _replay_steps(cfg, seq, frames, args.replay, dev, args.planes)
         unit = f"step of {args.replay} frames"
     else:
-        seq = SyntheticSequence(n_frames=n, cam=cfg.camera)
+        seq = SyntheticSequence(n_frames=n, cam=cfg.camera, view=view)
         frames = [seq.frame(i) for i in range(n)]
-        system = System(cfg)
+        system = System(cfg, enable_planes=args.planes)
 
         def run(i):
             ts, gray, depth = frames[i]
