@@ -31,33 +31,36 @@ Phases, each printing one line with its elapsed seconds:
              count set to 0 first: all frames tracked, ATE against the
              renderer's ground truth below 0.05 m, FAST, IC angle and BRIEF
              each launched once per frame.
-4. planes  - System(TUM1, enable_planes=True) over 30 frames of the 640x480
-             "corner" view (a floor and two perpendicular walls; BASELINE
-             config 2's analog), launch counts set to 0 first: all frames
-             tracked, ATE below 0.05 m, at least one plane extracted on
-             every frame, each kernel launched once per frame; prints ms
-             per frame, the frames on which a Manhattan frame was found and
-             used, and the map planes.  At 640x480 the corner's depth
-             (3-7 m) passes the far-depth plane gates for every block, and
-             the device merge (the reference's as well) joins floor and
-             walls into one plane, so no Manhattan frame exists there; the
-             reference's own Manhattan bar (tests/test_planes_e2e.py: its
-             192x144 corner run, 10 frames) is then held on the card:
-             Manhattan found on >= 3 frames and used on >= 1, >= 2 map
-             planes, >= 1 Manhattan pair.
+4. planes  - System(TUM1, enable_planes=True) over 30 frames of two
+             640x480 views of the box room, the launch counts set to 0
+             before each: every frame tracked, ATE below 0.05 m, each
+             kernel launched once per frame.  First the "corner" view (a
+             floor and two perpendicular walls at 3-7 m; BASELINE config
+             2's analog): at least one plane on every frame.  At that
+             depth the device merge (the reference's as well) joins floor
+             and walls into one plane, so no Manhattan frame exists there.
+             Then the "near_corner" view (the same floor corner from 1.8 m,
+             the camera 0.54 m above the floor: planes at 0.9-2.2 m), which
+             holds the reference's own Manhattan bar
+             (tests/test_planes_e2e.py): three planes on every frame, the
+             Manhattan frame found on >= 3 frames and used on >= 1, >= 2
+             map planes and >= 1 Manhattan pair.  Prints ms per frame, the
+             launches per frame, the planes per frame, the frames on which
+             a Manhattan frame was found and used, and the map's planes,
+             pairs and triples.
 5. replay  - the batched multi-sequence replay (BASELINE config 5) through
-             parallel/mesh.py with the plane branch on: B = 8 streams of
-             the 640x480 corner view, stream s at frame offset s, against
-             the one shared map view of keyframe 0 (with its map planes and
-             Manhattan registries), for 12 steps (the first not timed),
-             with the launch counts set to 0 first: every stream tracked on
-             every step, FAST, IC angle and BRIEF each launched once per
-             step, each stream's pose within 1e-3 m / 1e-3 rad of the
-             single-stream step run on the same frame and carry, and the
-             poses' RMS error against ground truth below 0.05 m.  Prints
-             ms per step, aggregate frames/s at B = 8 and B = 1 (the same
-             entry point), the peak memory and each stream's
-             manhattan_found.
+             parallel/mesh.py, which runs the plane branch: B = 8 streams
+             of the 640x480 near_corner view, stream s at frame offset s,
+             against the one shared map view of keyframe 0 (with its map
+             planes and Manhattan registries), for 12 steps (the first not
+             timed), with the launch counts set to 0 first: every stream
+             tracked and its Manhattan frame found on every step, FAST, IC
+             angle and BRIEF each launched once per step, each stream's
+             pose within 1e-3 m / 1e-3 rad of the single-stream step run on
+             the same frame and carry, and the poses' RMS error against
+             ground truth below 0.05 m.  Prints ms per step, aggregate
+             frames/s at B = 8 and B = 1 (the same entry point), the peak
+             memory and each stream's manhattan_found and use_manhattan.
 
 Any failure raises and the script exits nonzero.  It writes only into a
 temporary directory and the kernel build directory, and starts no thread.
@@ -79,9 +82,7 @@ import time
 import numpy as np
 import torch
 
-from manhattanslam_tpu_torch.config import (
-    CameraConfig, CapacityConfig, OrbConfig, SlamConfig, load_config,
-)
+from manhattanslam_tpu_torch.config import load_config
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
@@ -118,8 +119,8 @@ BLUR_OPS_PER_PIXEL = 2 * (7 + 6)
 # One row per TPU kernel (each function that reaches pl.pallas_call).  A
 # single kernel and its batched twin are served by one CUDA kernel, one
 # launch for all pyramid levels and streams; the single rows count
-# launches on the track phase's path (and list the planes phase's beside
-# them), the batched rows on the replay's.
+# launches on the track phase's path (and list the planes phase's two runs
+# beside them), the batched rows on the replay's.
 _FAST = "manhattanslam_tpu_torch/csrc/fast.cu"
 _IC = "manhattanslam_tpu_torch/csrc/ic_angle.cu"
 _BRIEF = "manhattanslam_tpu_torch/csrc/brief.cu"
@@ -514,39 +515,35 @@ def phase_track(cfg, seq, frames, tmp: str) -> tuple[dict, float]:
     return run["launches"], run["ms"]
 
 
-def phase_planes(cfg, tmp: str) -> tuple[dict, float]:
-    """System(enable_planes=True) over N_FRAMES frames of the 640x480
-    corner view, then the reference's Manhattan bar at its own 192x144
-    corner run; returns the full-size run's launch counts and median ms
-    per frame."""
-    t0 = time.perf_counter()
-    seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera, view="corner")
-    run = _run_system(cfg, seq, [seq.frame(i) for i in range(N_FRAMES)], tmp, True, "planes")
-    log(f"planes: 640x480 corner, {run['ms']:.1f} ms/frame, kernel launches per frame "
+def _log_planes(name: str, run: dict) -> None:
+    log(f"{name}: {run['ms']:.1f} ms/frame, kernel launches per frame "
         f"{ {k: v / N_FRAMES for k, v in run['launches'].items()} }, planes per frame "
         f"{run['planes_per_frame']}, Manhattan found on {run['found']} and used on "
         f"{run['used']} of {N_FRAMES - 1} tracked frames, {run['map_planes']} map planes, "
         f"{run['pairs']} Manhattan pairs, {run['triples']} triples")
-    if min(run["planes_per_frame"]) < 1 or run["map_planes"] < 1:
-        raise RuntimeError(f"planes: a frame without a plane ({run['planes_per_frame']}) or "
-                           f"no map plane ({run['map_planes']})")
-    small = SlamConfig(camera=CameraConfig(
-        fx=160.0, fy=160.0, cx=95.5, cy=71.5, k1=0, k2=0, p1=0, p2=0, k3=0,
-        width=192, height=144, bf=12.0,
-    ), orb=OrbConfig(n_features=250), caps=CapacityConfig(
-        max_keypoints=256, max_lines=32, max_map_points=8192, max_map_lines=512,
-        max_keyframes=64,
-    ))
-    seq_s = SyntheticSequence(n_frames=10, cam=small.camera, view="corner")
-    bar = _run_system(small, seq_s, [seq_s.frame(i) for i in range(10)], tmp, True, "planes_192x144")
-    log(f"planes: the reference's bar at 192x144 (10 corner frames): Manhattan found on "
-        f"{bar['found']} and used on {bar['used']} frames, {bar['map_planes']} map planes, "
-        f"{bar['pairs']} pairs, {bar['triples']} triples, {bar['ms']:.1f} ms/frame")
-    if not (bar["found"] >= 3 and bar["used"] >= 1 and bar["map_planes"] >= 2
-            and bar["pairs"] >= 1):
-        raise RuntimeError(f"planes: the Manhattan bar at 192x144 failed: {bar}")
+
+
+def phase_planes(cfg, tmp: str) -> tuple[dict, dict]:
+    """System(enable_planes=True) over N_FRAMES frames of the 640x480
+    corner view, then of the near_corner view with the reference's
+    Manhattan bar; returns each run's launch counts."""
+    t0 = time.perf_counter()
+    runs = {}
+    for view in ("corner", "near_corner"):
+        seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera, view=view)
+        frames = [seq.frame(i) for i in range(N_FRAMES)]
+        runs[view] = _run_system(cfg, seq, frames, tmp, True, f"planes_{view}")
+        _log_planes(f"planes: 640x480 {view}", runs[view])
+    corner, near = runs["corner"], runs["near_corner"]
+    if min(corner["planes_per_frame"]) < 1 or corner["map_planes"] < 1:
+        raise RuntimeError(f"planes: a corner frame without a plane "
+                           f"({corner['planes_per_frame']}) or no map plane")
+    if not (min(near["planes_per_frame"]) >= 3 and near["found"] >= 3 and near["used"] >= 1
+            and near["map_planes"] >= 2 and near["pairs"] >= 1):
+        raise RuntimeError(f"planes: the Manhattan bar at 640x480 (near_corner) failed: "
+                           f"{ {k: v for k, v in near.items() if k != 'launches'} }")
     log(f"phase planes: {time.perf_counter() - t0:.1f} s")
-    return run["launches"], run["ms"]
+    return corner["launches"], near["launches"]
 
 
 def _rot_angle(R: np.ndarray) -> float:
@@ -587,10 +584,11 @@ def _replay_run(cfg, dev, seq, native, view, first: list[int]):
 
 
 def phase_replay(cfg, dev, track_ms: float) -> dict:
-    """The batched replay (plane branch on) of BATCH streams of the corner
-    view against one shared view; returns the launch counts of its run."""
+    """The batched replay (plane branch on) of BATCH streams of the
+    near_corner view against one shared view; returns the launch counts of
+    its run."""
     t0 = time.perf_counter()
-    seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera, view="corner")
+    seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera, view="near_corner")
     frames = [seq.frame(i) for i in range(N_FRAMES)]
     # the shared view of keyframe 0; stream s replays frames s, s+1, ...
     # from the ground-truth pose of frame s (parallel/replay.py)
@@ -650,6 +648,10 @@ def phase_replay(cfg, dev, track_ms: float) -> dict:
             f"replay poses differ from the single-stream step by {max_dt} m / {max_dr} rad")
     if not gt_rms < ATE_LIMIT:
         raise RuntimeError(f"replay pose RMS error {gt_rms} m is not below {ATE_LIMIT} m")
+    lost = [(i, np.nonzero(~o["manhattan_found"])[0].tolist()) for i, o in enumerate(outs)
+            if not o["manhattan_found"].all()]
+    if lost:
+        raise RuntimeError(f"replay: no Manhattan frame found at (step, streams) {lost}")
     log(f"phase replay: {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -668,10 +670,11 @@ def main() -> int:
     stats = phase_kernels(cfg, dev, frames)
     with tempfile.TemporaryDirectory() as tmp:
         track_launches, track_ms = phase_track(cfg, seq, frames, tmp)
-        planes_launches, _ = phase_planes(cfg, tmp)
+        corner_launches, near_launches = phase_planes(cfg, tmp)
     replay_launches = phase_replay(cfg, dev, track_ms)
-    launches = {"track": track_launches, "planes": planes_launches, "replay": replay_launches}
-    paths = {"track": ("track", "planes"), "replay": ("replay",)}
+    launches = {"track": track_launches, "planes_corner": corner_launches,
+                "planes_near_corner": near_launches, "replay": replay_launches}
+    paths = {"track": ("track", "planes_corner", "planes_near_corner"), "replay": ("replay",)}
     rows = []
     for name, k in KERNELS.items():
         st = stats[name]

@@ -255,19 +255,15 @@ def walk_poses(
     return np.stack(poses)
 
 
-def corner_poses(n: int, room: BoxRoom, sway: float = 0.15) -> np.ndarray:
-    """n poses looking toward a room corner: floor + two perpendicular walls
-    stay in view the whole time (Manhattan-friendly viewpoint)."""
-    sx, sy, sz = room.size
-    corner = np.array([sx * 0.9, sy * 0.85, sz * 0.9], np.float32)
-    base = np.array([sx * 0.35, sy * 0.4, sz * 0.3], np.float32)
+def _look_at_poses(n: int, base: np.ndarray, target: np.ndarray, sway: float) -> np.ndarray:
+    """n poses swaying around `base`, each looking at `target`."""
     poses = []
     for i in range(n):
         a = np.sin(2 * np.pi * i / max(n, 1))
         pos = base + np.array(
             [sway * a, 0.05 * np.sin(2 * a), 0.1 * a], np.float32
         )
-        z = corner - pos
+        z = target - pos
         z = z / np.linalg.norm(z)
         x = np.cross(np.array([0.0, 1.0, 0.0], np.float32), z)
         x = x / np.linalg.norm(x)
@@ -276,6 +272,27 @@ def corner_poses(n: int, room: BoxRoom, sway: float = 0.15) -> np.ndarray:
         T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = x, y, z, pos
         poses.append(T)
     return np.stack(poses)
+
+
+def corner_poses(n: int, room: BoxRoom, sway: float = 0.15) -> np.ndarray:
+    """n poses looking toward a room corner: floor + two perpendicular walls
+    stay in view the whole time (Manhattan-friendly viewpoint)."""
+    sx, sy, sz = room.size
+    corner = np.array([sx * 0.9, sy * 0.85, sz * 0.9], np.float32)
+    base = np.array([sx * 0.35, sy * 0.4, sz * 0.3], np.float32)
+    return _look_at_poses(n, base, corner, sway)
+
+
+def near_corner_poses(n: int, room: BoxRoom, sway: float = 0.15) -> np.ndarray:
+    """n poses of a camera 0.54 m above the floor (y = sy) looking at the
+    floor corner (sx, sy, sz) from 1.8 m, with corner_poses' sway: the
+    floor and the two walls at 0.9-2.2 m depth.  (The "corner" view sees
+    them at 3-7 m, where the device plane extraction at 640x480 joins them
+    into one plane: ops/planes.py, merge_blocks_device.)"""
+    far = np.array(room.size, np.float32)
+    target = far - np.float32([0.18, 0.135, 0.24])
+    base = far - np.float32([1.17, 0.54, 1.68])
+    return _look_at_poses(n, base, target, sway)
 
 
 class SyntheticSequence:
@@ -288,7 +305,7 @@ class SyntheticSequence:
         room: BoxRoom | None = None,
         depth_noise: float = 0.0,
         seed: int = 0,
-        view: str = "wall",  # "wall" | "corner" | "corridor" (low-texture)
+        view: str = "wall",  # "wall" | "corner" | "near_corner" | "corridor" (low-texture) | "walk"
     ):
         self.cam = cam or CameraConfig(
             fx=525.0, fy=525.0, cx=319.5, cy=239.5, k1=0, k2=0, p1=0, p2=0, k3=0
@@ -298,6 +315,8 @@ class SyntheticSequence:
         self.room = room or BoxRoom()
         if view == "corner":
             self.poses = corner_poses(n_frames, self.room)
+        elif view == "near_corner":
+            self.poses = near_corner_poses(n_frames, self.room)
         elif view == "corridor":
             self.poses = corridor_poses(n_frames, self.room)
         elif view == "walk":

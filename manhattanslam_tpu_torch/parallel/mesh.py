@@ -24,14 +24,13 @@ from manhattanslam_tpu_torch.frontend import device_tracker as dt
 RESULT_KEYS = ("T", "tracked_ok", "n_inliers", "n_matches", "manhattan_found", "use_manhattan")
 
 
-def build_throughput_step(cfg: SlamConfig, batch: int, device=None, enable_planes: bool = True):
+def build_throughput_step(cfg: SlamConfig, batch: int, device=None):
     """Returns step(gray8 (B,H,W) uint8, d16 (B,H,W) int32 in DEPTH_QUANT
     units, carry (batched), view (shared)) -> (result, new_carry): each
     result value has a leading axis of `batch` streams, ``manhattan_found``
-    and ``use_manhattan`` as the plane branch computes them (False with
-    enable_planes=False, the points-only body)."""
+    and ``use_manhattan`` as the plane branch computes them."""
     device = resolve_device(device)
-    body = dt.build_batched_body(cfg, device, enable_planes)
+    body = dt.build_batched_body(cfg, device, enable_planes=True)
     hw = (cfg.camera.height, cfg.camera.width)
 
     def step(gray8, d16, carry, view):

@@ -376,20 +376,24 @@ def test_system_on_cuda_matches_cpu(cuda):
     assert np.sqrt(((pos_gpu - pos_cpu) ** 2).sum(1).mean()) < 1e-2
 
 
-def _corner_depths(cfg, frames):
-    seq = SyntheticSequence(n_frames=max(frames) + 1, cam=cfg.camera, view="corner")
+def _view_depths(cfg, view, frames):
+    seq = SyntheticSequence(n_frames=30, cam=cfg.camera, view=view)
     d16 = [dt.to_native(*seq.frame(i)[1:])[1].astype(np.int32) for i in frames]
     return torch.from_numpy(np.stack(d16)).to(torch.float32) * float(np.float32(1 / dt.DEPTH_QUANT))
 
 
 def test_plane_extraction_on_card_matches_cpu(cuda):
-    """The plane extraction of three 640x480 corner frames at TUM1 (one
-    call for the three streams) on the card against the CPU: the hash
-    priorities equal; valid, n_pts equal; normals within 1e-4 and d within
-    1e-4 of |d|; membership equal on 99% of the plane pixels (the fits'
-    float32 sums run in another order on the card)."""
+    """The plane extraction of three 640x480 frames of the corner view
+    (one plane: floor and walls joined) and three of the near_corner view
+    (three planes) at TUM1, in one call for the six streams, on the card
+    against the CPU: the hash priorities equal; valid, n_pts equal;
+    normals within 1e-4; a plane with the same pixels on both within 1e-4
+    m RMS over them, another one's d within 1e-4 of |d|; membership equal
+    on 99% of the plane pixels (the fits' float32 sums run in another
+    order on the card)."""
     cfg = load_config(str(Path(__file__).resolve().parent.parent / "configs" / "TUM1.yaml"))
-    depth = _corner_depths(cfg, (0, 10, 20))
+    depth = torch.cat([_view_depths(cfg, "corner", (0, 10, 20)),
+                       _view_depths(cfg, "near_corner", (0, 10, 20))])
     K = torch.from_numpy(cfg.camera.K)
     h2, w2 = cfg.camera.height // 2, cfg.camera.width // 2
     args = (8, 512, (h2 // 10, w2 // 10), float(np.float32(0.04 * h2 * w2)), 0.04)
@@ -398,12 +402,22 @@ def test_plane_extraction_on_card_matches_cpu(cuda):
     gpu = planes.extract_planes_device(depth.to(cuda), K.to(cuda), *args)
     cpu = planes.extract_planes_device(depth, K, *args)
     gpu = {k: v.cpu() for k, v in gpu.items()}
-    assert torch.equal(gpu["valid"], cpu["valid"]) and bool(cpu["valid"].any())
+    assert torch.equal(gpu["valid"], cpu["valid"])
+    assert cpu["valid"].sum(-1).tolist() == [1, 1, 1, 3, 3, 3]
     assert torch.equal(gpu["n_pts"], cpu["n_pts"])
     v = cpu["valid"]
     assert float((gpu["coeffs"][v][:, :3] - cpu["coeffs"][v][:, :3]).abs().max()) <= 1e-4
-    d = cpu["coeffs"][v][:, 3]
-    assert bool(((gpu["coeffs"][v][:, 3] - d).abs() <= 1e-4 * d.abs()).all())
+    pts = planes.depth_to_points(depth, K).reshape(6, -1, 3)
+    for b, j in v.nonzero().tolist():
+        on = (cpu["membership"][b] == j).reshape(-1)
+        if (int(gpu["n_support"][b, j]) == int(cpu["n_support"][b, j])
+                and torch.equal((gpu["membership"][b] == j).reshape(-1), on)):
+            gap = pts[b][on] @ (gpu["coeffs"][b, j, :3] - cpu["coeffs"][b, j, :3]) + (
+                gpu["coeffs"][b, j, 3] - cpu["coeffs"][b, j, 3])
+            assert float(gap.square().mean().sqrt()) <= 1e-4, (b, j)
+        else:
+            d = float(cpu["coeffs"][b, j, 3])
+            assert abs(float(gpu["coeffs"][b, j, 3]) - d) <= 1e-4 * abs(d), (b, j)
     member = (gpu["membership"] >= 0) | (cpu["membership"] >= 0)
     assert float((gpu["membership"] == cpu["membership"])[member].float().mean()) >= 0.99
 

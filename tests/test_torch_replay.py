@@ -250,9 +250,7 @@ def test_batched_entry_at_b1_equals_single_body(replay):
 def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, batch):
     """Whatever the number of streams, the FAST, IC angle and BRIEF
     wrappers are each called once per step for all pyramid levels (that
-    are large enough for the patch window).  The extraction is the same
-    with or without the plane branch; the points-only step keeps this
-    test short."""
+    are large enough for the patch window)."""
     pcfg, _, native, _, view, T0, _ = replay
     calls = {}
 
@@ -268,7 +266,7 @@ def test_kernel_wrappers_called_once_per_level_per_step(replay, monkeypatch, bat
     spy(pfast, "fast_score_levels")
     spy(porb, "ic_angle_levels")
     spy(porb, "brief_levels")
-    step = pmesh.build_throughput_step(pcfg, batch, CPU, enable_planes=False)
+    step = pmesh.build_throughput_step(pcfg, batch, CPU)
     carry = pmesh.init_batched_carry(pcfg, batch, CPU)
     first = [OFFSETS[0] + s for s in range(batch)]
     n_steps = 2

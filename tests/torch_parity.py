@@ -2,11 +2,22 @@
 
 The parity tests feed the same numpy inputs, made from a seed, to the JAX
 reference package and to its PyTorch port, on the CPU.
+
+Under pytest-xdist (one worker process per core, each collecting every
+test module, so each imports this one) torch runs one intra-op thread per
+worker: its default of one thread per core in every worker oversubscribes
+the cores, and the JAX tests in the other workers slow down with it.
 """
 
 import dataclasses
+import os
+
+import torch
 
 import manhattanslam_tpu_torch.config as port_config
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 def port_cfg(jax_cfg):

@@ -22,8 +22,9 @@ Views:
 Traffic:
 - ``bench``: bench.py's, the "corner" box-room sequence of 12 frames,
   stream s at frame (i + s) mod 12, every stream starting at the identity.
-- ``smoke``: chip_smoke.py's, the corner sequence of steps + batch frames,
-  stream s at frame s + i, starting at the ground-truth pose of frame s.
+- ``smoke``: chip_smoke.py's, the near_corner sequence of steps + batch
+  frames, stream s at frame s + i, starting at the ground-truth pose of
+  frame s.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ def run(cfg, dev, view, native, frame_at, carry, batch: int, steps: int) -> list
 def probe(cfg, dev, batch: int, steps: int) -> dict:
     seqs = {
         "bench": SyntheticSequence(n_frames=BENCH_FRAMES, cam=cfg.camera, view="corner"),
-        "smoke": SyntheticSequence(n_frames=steps + batch, cam=cfg.camera, view="corner"),
+        "smoke": SyntheticSequence(n_frames=steps + batch, cam=cfg.camera, view="near_corner"),
     }
     frames = {k: [s.frame(i) for i in range(len(s.poses))] for k, s in seqs.items()}
     native = {k: [dt.to_native(g, d) for _, g, d in f] for k, f in frames.items()}

@@ -4,7 +4,7 @@
 Usage (one CUDA card, from the repository root):
 
     python3 tools/profile_torch_track.py [--planes] [--frames 10] [--warmup 5] [--trace PATH]
-    python3 tools/profile_torch_track.py --replay 8 [--planes] [--frames 10] [--warmup 2]
+    python3 tools/profile_torch_track.py --replay 8 [--frames 10] [--warmup 2]
 
 Tracks the synthetic 640x480 box room at the TUM1 camera with the port's
 System (points only: the orbit view), then profiles `--frames` frames with
@@ -15,11 +15,11 @@ operators and kernels that take the most time.  `--trace` also writes a
 Chrome trace.
 
 `--planes` turns the plane and Manhattan branch on and tracks the
-"corner" view instead (chip_smoke.py's planes phase).  With `--replay B`
-it profiles the batched multi-sequence replay (parallel/mesh.py): B
-streams, stream s at frame offset s, against the shared view of keyframe
-0; with `--planes` that is chip_smoke.py's replay phase (the corner view,
-the plane branch on), without it the points-only body on the orbit view.
+"near_corner" view instead, where the Manhattan frame is found and used
+(chip_smoke.py's planes phase).  With `--replay B` it profiles the
+batched multi-sequence replay (parallel/mesh.py, which runs the plane
+branch): B streams of the near_corner view, stream s at frame offset s,
+against the shared view of keyframe 0, as chip_smoke.py's replay phase.
 Every "per frame" figure is then per batched step of B frames.
 """
 
@@ -50,13 +50,13 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _replay_steps(cfg, seq, frames, batch: int, dev, planes: bool):
+def _replay_steps(cfg, seq, frames, batch: int, dev):
     """One callable per replay step of `batch` streams (upload + step),
     sharing a carry: the traffic of chip_smoke.py's replay phase
     (parallel/replay.py)."""
     view, _ = replay.shared_view(cfg, frames[0], dev)
     native = [dt.to_native(g, d) for _, g, d in frames]
-    step = mesh.build_throughput_step(cfg, batch, dev, enable_planes=planes)
+    step = mesh.build_throughput_step(cfg, batch, dev)
     first = list(range(batch))
     state = {"carry": replay.start_carry(cfg, seq, first, dev)}
 
@@ -75,7 +75,7 @@ def main() -> int:
     ap.add_argument("--replay", type=int, default=0, metavar="B",
                     help="profile the batched replay of B streams instead")
     ap.add_argument("--planes", action="store_true",
-                    help="the plane and Manhattan branch on, on the corner view")
+                    help="the plane and Manhattan branch on, on the near_corner view")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_track: needs a CUDA device", file=sys.stderr)
@@ -84,12 +84,12 @@ def main() -> int:
     cfg = load_config(os.path.join(root, "configs", "TUM1.yaml"))
     n = args.warmup + args.frames
     dev = torch.device("cuda")
-    view = "corner" if args.planes else "wall"
+    view = "near_corner" if args.planes or args.replay else "wall"
     if args.replay:
         # a sequence long enough that no stream wraps around
         seq = SyntheticSequence(n_frames=max(30, n + args.replay), cam=cfg.camera, view=view)
         frames = [seq.frame(i) for i in range(n + args.replay)]
-        run = _replay_steps(cfg, seq, frames, args.replay, dev, args.planes)
+        run = _replay_steps(cfg, seq, frames, args.replay, dev)
         unit = f"step of {args.replay} frames"
     else:
         seq = SyntheticSequence(n_frames=n, cam=cfg.camera, view=view)
