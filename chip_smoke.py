@@ -48,19 +48,32 @@ Phases, each printing one line with its elapsed seconds:
              launches per frame, the planes per frame, the frames on which
              a Manhattan frame was found and used, and the map's planes,
              pairs and triples.
-5. replay  - the batched multi-sequence replay (BASELINE config 5) through
-             parallel/mesh.py, which runs the plane branch: B = 8 streams
+5. full    - System(TUM1, enable_planes=True, enable_lines=True), the
+             reference's full body (BASELINE config 3's analog: points,
+             planes, Manhattan frames and lines), over 30 frames of the
+             640x480 near_corner view, the launch counts set to 0 first:
+             every frame tracked, ATE below 0.05 m, each kernel launched
+             once per frame; the reference's line bar
+             (tests/test_lines_e2e.py): >= 3 map lines, each longer than
+             0.05 m, and >= 1 frame line associated on the last frame; and
+             the Manhattan bar of the planes phase.  Prints ms per frame,
+             the launches per frame, the lines per frame (valid and lifted
+             to 3D), the associated lines per frame, the map lines and the
+             Manhattan counts.
+6. replay  - the batched multi-sequence replay (BASELINE config 5) through
+             parallel/mesh.py, which runs the full body: B = 8 streams
              of the 640x480 near_corner view, stream s at frame offset s,
              against the one shared map view of keyframe 0 (with its map
-             planes and Manhattan registries), for 12 steps (the first not
-             timed), with the launch counts set to 0 first: every stream
-             tracked and its Manhattan frame found on every step, FAST, IC
-             angle and BRIEF each launched once per step, each stream's
-             pose within 1e-3 m / 1e-3 rad of the single-stream step run on
-             the same frame and carry, and the poses' RMS error against
-             ground truth below 0.05 m.  Prints ms per step, aggregate
-             frames/s at B = 8 and B = 1 (the same entry point), the peak
-             memory and each stream's manhattan_found and use_manhattan.
+             planes, Manhattan registries and map lines), for 12 steps (the
+             first not timed), with the launch counts set to 0 first: every
+             stream tracked and its Manhattan frame found on every step,
+             FAST, IC angle and BRIEF each launched once per step, each
+             stream's pose within 1e-3 m / 1e-3 rad of the single-stream
+             step run on the same frame and carry, and the poses' RMS error
+             against ground truth below 0.05 m.  Prints ms per step,
+             aggregate frames/s at B = 8 and B = 1 (the same entry point),
+             the peak memory, each stream's manhattan_found and
+             use_manhattan and its associated lines per step.
 
 Any failure raises and the script exits nonzero.  It writes only into a
 temporary directory and the kernel build directory, and starts no thread.
@@ -120,7 +133,7 @@ BLUR_OPS_PER_PIXEL = 2 * (7 + 6)
 # single kernel and its batched twin are served by one CUDA kernel, one
 # launch for all pyramid levels and streams; the single rows count
 # launches on the track phase's path (and list the planes phase's two runs
-# beside them), the batched rows on the replay's.
+# and the full phase's beside them), the batched rows on the replay's.
 _FAST = "manhattanslam_tpu_torch/csrc/fast.cu"
 _IC = "manhattanslam_tpu_torch/csrc/ic_angle.cu"
 _BRIEF = "manhattanslam_tpu_torch/csrc/brief.cu"
@@ -453,15 +466,18 @@ def phase_kernels(cfg, dev, frames) -> dict:
     return stats
 
 
-def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str) -> dict:
-    """System(cfg, enable_planes) over the frames with the launch counts
-    set to 0 first: every frame tracked, ATE below ATE_LIMIT and each
-    kernel launched once per frame.  Returns the launch counts, median ms
-    per frame and, with planes, per-frame plane and Manhattan counts."""
+def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str,
+                enable_lines: bool = False) -> dict:
+    """System(cfg, enable_planes, enable_lines) over the frames with the
+    launch counts set to 0 first: every frame tracked, ATE below ATE_LIMIT
+    and each kernel launched once per frame.  Returns the launch counts,
+    median ms per frame and, with planes, per-frame plane and Manhattan
+    counts, with lines per-frame line counts and the map lines."""
     t0 = time.perf_counter()
-    system = System(cfg, enable_planes=enable_planes)  # CUDA by default
+    system = System(cfg, enable_planes=enable_planes, enable_lines=enable_lines)  # CUDA
     reset_launches()
     ms, tracked, n_planes, found, used = [], 0, [], 0, 0
+    n_lines, n_lifted, n_assoc = [], [], []
     for ts, gray, depth in frames:
         t = time.perf_counter()
         T = system.track(gray, depth, ts)
@@ -474,6 +490,10 @@ def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str) -> d
             n_planes.append(int(res["plane_valid"].sum()))
             found += int(res["manhattan_found"])
             used += int(res["use_manhattan"])
+        if enable_lines and res is not None:
+            n_lines.append(int(res["line_valid"].sum()))
+            n_lifted.append(int((res["line_valid"] & res["line_has3d"]).sum()))
+            n_assoc.append(int((res["line_assoc"] >= 0).sum()))
     launches = read_launches()
     system.shutdown()
     traj = os.path.join(tmp, f"CameraTrajectory_{name}.txt")
@@ -504,6 +524,11 @@ def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str) -> d
                    map_planes=int(system.map.pl_valid.sum()),
                    pairs=len(system.map.manhattan_pairs),
                    triples=len(system.map.manhattan_triples))
+    if enable_lines:
+        m = system.map
+        out.update(lines_per_frame=n_lines, lifted_per_frame=n_lifted, assoc_per_frame=n_assoc,
+                   map_lines=int(m.ml_valid.sum()),
+                   map_line_lengths=np.linalg.norm(m.ml_ep - m.ml_sp, axis=1)[m.ml_valid])
     return out
 
 
@@ -538,12 +563,42 @@ def phase_planes(cfg, tmp: str) -> tuple[dict, dict]:
     if min(corner["planes_per_frame"]) < 1 or corner["map_planes"] < 1:
         raise RuntimeError(f"planes: a corner frame without a plane "
                            f"({corner['planes_per_frame']}) or no map plane")
-    if not (min(near["planes_per_frame"]) >= 3 and near["found"] >= 3 and near["used"] >= 1
-            and near["map_planes"] >= 2 and near["pairs"] >= 1):
+    if not _manhattan_bar(near):
         raise RuntimeError(f"planes: the Manhattan bar at 640x480 (near_corner) failed: "
                            f"{ {k: v for k, v in near.items() if k != 'launches'} }")
     log(f"phase planes: {time.perf_counter() - t0:.1f} s")
     return corner["launches"], near["launches"]
+
+
+def _manhattan_bar(run: dict) -> bool:
+    """The reference's Manhattan bar (tests/test_planes_e2e.py), held on
+    the near_corner view at 640x480."""
+    return (min(run["planes_per_frame"]) >= 3 and run["found"] >= 3 and run["used"] >= 1
+            and run["map_planes"] >= 2 and run["pairs"] >= 1)
+
+
+def phase_full(cfg, tmp: str) -> dict:
+    """System(enable_planes=True, enable_lines=True) over N_FRAMES frames
+    of the 640x480 near_corner view with the reference's line bar and the
+    Manhattan bar; returns the run's launch counts."""
+    t0 = time.perf_counter()
+    seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera, view="near_corner")
+    frames = [seq.frame(i) for i in range(N_FRAMES)]
+    run = _run_system(cfg, seq, frames, tmp, True, "full", enable_lines=True)
+    _log_planes("full: 640x480 near_corner", run)
+    lengths = run["map_line_lengths"]
+    log(f"full: lines per frame (valid) {run['lines_per_frame']}, lifted to 3D "
+        f"{run['lifted_per_frame']}, associated with map lines {run['assoc_per_frame']}; "
+        f"{run['map_lines']} map lines, shortest {lengths.min() if len(lengths) else 0:.3f} m")
+    if not (run["map_lines"] >= 3 and (lengths > 0.05).all() and run["assoc_per_frame"][-1] >= 1):
+        raise RuntimeError(
+            f"full: the line bar failed: {run['map_lines']} map lines, lengths {lengths}, "
+            f"{run['assoc_per_frame'][-1]} associated on the last frame")
+    if not _manhattan_bar(run):
+        raise RuntimeError(f"full: the Manhattan bar failed: "
+                           f"{ {k: v for k, v in run.items() if k != 'launches'} }")
+    log(f"phase full: {time.perf_counter() - t0:.1f} s")
+    return run["launches"]
 
 
 def _rot_angle(R: np.ndarray) -> float:
@@ -584,7 +639,7 @@ def _replay_run(cfg, dev, seq, native, view, first: list[int]):
 
 
 def phase_replay(cfg, dev, track_ms: float) -> dict:
-    """The batched replay (plane branch on) of BATCH streams of the
+    """The batched replay (the full body) of BATCH streams of the
     near_corner view against one shared view; returns the launch counts of
     its run."""
     t0 = time.perf_counter()
@@ -618,7 +673,7 @@ def phase_replay(cfg, dev, track_ms: float) -> dict:
                 raise RuntimeError(
                     f"replay step {i}: {name} launched {n} times, not {per_step[name]}")
     # each stream against the single-stream step on the same frame and carry
-    single = dt.build_frame_step(cfg, dev, enable_planes=True)
+    single = dt.build_frame_step(cfg, dev, enable_planes=True, enable_lines=True)
     max_dt = max_dr = 0.0
     gt_err = []
     for i, ((g8, d16), carry, out) in enumerate(zip(inputs, carries, outs)):
@@ -640,6 +695,8 @@ def phase_replay(cfg, dev, track_ms: float) -> dict:
     log(f"replay: manhattan_found per stream and step "
         f"{[o['manhattan_found'].astype(int).tolist() for o in outs]}, use_manhattan "
         f"{[o['use_manhattan'].astype(int).tolist() for o in outs]}")
+    log(f"replay: associated lines per step and stream "
+        f"{[(o['line_assoc'] >= 0).sum(-1).tolist() for o in outs]}")
     log(f"replay: against the single-stream step on the same frame and carry: max "
         f"{max_dt:.3g} m, {max_dr:.3g} rad; against ground truth: RMS {gt_rms:.4f} m, "
         f"max {max(gt_err):.4f} m")
@@ -671,10 +728,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         track_launches, track_ms = phase_track(cfg, seq, frames, tmp)
         corner_launches, near_launches = phase_planes(cfg, tmp)
+        full_launches = phase_full(cfg, tmp)
     replay_launches = phase_replay(cfg, dev, track_ms)
     launches = {"track": track_launches, "planes_corner": corner_launches,
-                "planes_near_corner": near_launches, "replay": replay_launches}
-    paths = {"track": ("track", "planes_corner", "planes_near_corner"), "replay": ("replay",)}
+                "planes_near_corner": near_launches, "full": full_launches,
+                "replay": replay_launches}
+    paths = {"track": ("track", "planes_corner", "planes_near_corner", "full"),
+             "replay": ("replay",)}
     rows = []
     for name, k in KERNELS.items():
         st = stats[name]

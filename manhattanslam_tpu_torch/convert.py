@@ -1,7 +1,7 @@
 """Carry the reference package's tracker state into the port.
 
 The system has no learned weights; what a tracker carries is state: the
-map's point, plane and keyframe tables with the Manhattan registries, the
+map's point, line, plane and keyframe tables with the Manhattan registries, the
 per-frame device carry, and the BRIEF pattern.  These functions take that
 state as numpy arrays and dicts (as the JAX package's ``SlamMap``
 attributes, its ``FastTracker.reg2`` / ``reg3``,
@@ -19,15 +19,17 @@ import torch
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.slam_map import SlamMap
 
-# SlamMap attributes carried over (the port's point, plane and keyframe
-# tables)
+# SlamMap attributes carried over (the port's point, line, plane and
+# keyframe tables)
 MAP_TABLES = (
     "mp_pos", "mp_desc", "mp_normal", "mp_min_dist", "mp_max_dist", "mp_level",
     "mp_valid", "mp_n_obs", "mp_visible", "mp_found", "mp_first_kf",
+    "ml_sp", "ml_ep", "ml_desc", "ml_valid", "ml_n_obs", "ml_visible", "ml_found",
+    "ml_first_kf",
     "pl_coeffs", "pl_pts", "pl_n_pts", "pl_valid", "pl_n_obs", "pl_first_kf", "pl_color",
     "kf_pose", "kf_time", "kf_frame_id", "kf_valid", "kf_xy", "kf_uright",
     "kf_depth", "kf_level", "kf_angle", "kf_desc", "kf_kp_valid", "kf_mp_idx",
-    "kf_pl_idx", "kf_plane_coeffs", "kf_plane_npts", "covis", "kf_parent",
+    "kf_ml_idx", "kf_pl_idx", "kf_plane_coeffs", "kf_plane_npts", "covis", "kf_parent",
 )
 MAP_SCALARS = ("n_kf", "last_kf_added")
 # the Manhattan registries as the map keeps them (sorted id tuple -> kf)

@@ -6,9 +6,10 @@ of the summary.  The map view on the device is refreshed only at keyframe
 events, where the host runs the reference's keyframe policy, creates map
 points from depth and, with planes on, merges or adds the frame's planes
 and registers perpendicular pairs and triples in the Manhattan
-registries.  No threads: each call to ``track`` returns after its frame
-is finished.  Lines, chunked dispatch, localization mode, relocalization
-and the mapping back end come with later slices.
+registries; with lines on, it refines associated map lines and adds new
+ones.  No threads: each call to ``track`` returns after its frame is
+finished.  Chunked dispatch, localization mode, relocalization and the
+mapping back end come with later slices.
 """
 
 from __future__ import annotations
@@ -28,13 +29,19 @@ from manhattanslam_tpu_torch.slam_map import SlamMap
 
 class FastTracker:
     def __init__(
-        self, cfg: SlamConfig, slam_map: SlamMap, device: torch.device, enable_planes: bool = False
+        self,
+        cfg: SlamConfig,
+        slam_map: SlamMap,
+        device: torch.device,
+        enable_planes: bool = False,
+        enable_lines: bool = False,
     ):
         self.cfg = cfg
         self.map = slam_map
         self.device = device
         self.enable_planes = enable_planes
-        self.step = dt.build_frame_step(cfg, device, enable_planes)
+        self.enable_lines = enable_lines
+        self.step = dt.build_frame_step(cfg, device, enable_planes, enable_lines)
         # Manhattan registries (host source of truth; the view mirrors them)
         self.reg2, self.reg3 = dt.empty_registries(cfg)
         # the temporal VO bank anchors tracking while map coverage starves
@@ -103,6 +110,12 @@ class FastTracker:
         vis = s["visible"] & m.mp_valid
         m.mp_visible[vis] += 1
         m.mp_found[s["matched"] & vis] += 1
+        if self.enable_lines:
+            # MapLine::IncreaseVisible / IncreaseFound; np.add.at counts
+            # two frame lines on one map line twice
+            m.ml_visible[s["ml_visible"] & m.ml_valid] += 1
+            matched_ml = s["line_assoc"][s["line_assoc"] >= 0]
+            np.add.at(m.ml_found, matched_ml[m.ml_valid[matched_ml]], 1)
         if self._need_new_keyframe(s, self.frame_id):
             self._create_keyframe(timestamp, result, s, self.frame_id)
         self._record(timestamp, lost=False)
@@ -163,6 +176,8 @@ class FastTracker:
         m.set_kf_matches(kf_id, mp_idx)
         if self.enable_planes:
             self._kf_planes(kf_id, dt.pull_planes(result), s["plane_assoc"])
+        if self.enable_lines:
+            self._kf_lines(kf_id, dt.pull_lines(result))
         self.ref_kf = kf_id
         self.last_kf_frame_id = frame_id
         self._ref_matches = None
@@ -258,6 +273,43 @@ class FastTracker:
                             self.reg3[perm] = kf_id
                         m.add_manhattan_triple(*trip, kf_id)
 
+    def _kf_lines(self, kf_id: int, lines: dict, max_new: int = 30) -> None:
+        """The keyframe's lines (the reference's _kf_lines): an associated
+        line refines its map line with its world-frame 3D segment, when it
+        has one; an unassociated line with a 3D segment becomes a map line
+        in the lowest free slot, at most max_new per keyframe."""
+        m = self.map
+        T_wc = np.linalg.inv(self.T_cw)
+
+        def world(p):
+            return p @ T_wc[:3, :3].T + T_wc[:3, 3]
+
+        n_new = 0
+        for i in range(self.cfg.caps.max_lines):
+            if not lines["line_valid"][i]:
+                continue
+            j = int(lines["line_assoc"][i])
+            if j >= 0 and m.ml_valid[j]:
+                if lines["line_has3d"][i]:
+                    m.observe_line(j, world(lines["line_sp3"][i]), world(lines["line_ep3"][i]),
+                                   lines["line_desc"][i])
+                m.ml_n_obs[j] += 1
+            elif lines["line_has3d"][i] and n_new < max_new:
+                free = np.nonzero(~m.ml_valid)[0]
+                if len(free) == 0:
+                    break
+                j = int(free[0])
+                m.ml_sp[j] = world(lines["line_sp3"][i])
+                m.ml_ep[j] = world(lines["line_ep3"][i])
+                m.ml_desc[j, : lines["line_desc"].shape[1]] = lines["line_desc"][i]
+                m.ml_valid[j] = True
+                m.ml_n_obs[j] = 1
+                m.ml_first_kf[j] = kf_id
+                n_new += 1
+            else:
+                continue
+            m.kf_ml_idx[kf_id, i] = j
+
     # ------------------------------------------------------- initialization
     def _initialize(self, timestamp, g8_t, d16_t) -> None:
         """First frame: its features become keyframe 0 with every depth
@@ -276,6 +328,8 @@ class FastTracker:
         if self.enable_planes:
             P = self.cfg.caps.max_planes_frame
             self._kf_planes(kf_id, dt.pull_planes(result), np.full(P, -1, np.int32))
+        if self.enable_lines:
+            self._kf_lines(kf_id, dt.pull_lines(result))
         self.ref_kf = kf_id
         self.last_kf_frame_id = self.frame_id
         self.state = OK

@@ -1,10 +1,11 @@
 """Match-and-solve composites of the tracking hot path (counterpart of
-manhattanslam_tpu/frontend/tracking_ops.py, points and planes).
+manhattanslam_tpu/frontend/tracking_ops.py).
 
 Projection matching (TrackWithMotionModel / TrackLocalMap) and pure
 descriptor matching against the reference keyframe (TrackReferenceKeyFrame)
 each become a keypoint-indexed ``PoseProblem`` that also carries the
-frame's plane associations (``PlaneObs``); ``track_projection`` adds the
+frame's plane associations (``PlaneObs``) and line associations
+(``LineObs``); ``track_projection`` adds the
 solve, with the rotation frozen for the Manhattan decoupled solve
 (``translation_only``), and the match bookkeeping.  The reference's
 ``track_descriptors`` (descriptor matching + solve) runs inside the fused
@@ -48,22 +49,43 @@ def empty_plane_obs(np_: int = 8, lead: tuple = (), device=None) -> PlaneObs:
     return PlaneObs(z, z, off, z, z, off, z, z, off)
 
 
+class LineObs(NamedTuple):
+    """Per-frame line associations, two endpoint rows per frame line
+    (..., 2L): the matched map line's world endpoint, the frame line's
+    normalized image equation, the information and the mask."""
+
+    xw: torch.Tensor
+    eq: torch.Tensor
+    info: torch.Tensor
+    mask: torch.Tensor
+
+
+def empty_line_obs(n_lines: int = 64, lead: tuple = (), device=None) -> LineObs:
+    """No line observations: 2 * n_lines masked-out endpoint rows."""
+    z = torch.zeros(lead + (2 * n_lines, 3), device=device)
+    return LineObs(z, z, torch.zeros(lead + (2 * n_lines,), device=device),
+                   torch.zeros(lead + (2 * n_lines,), dtype=torch.bool, device=device))
+
+
 def build_point_problem(
     pts_pos: torch.Tensor,
     kp_idx: torch.Tensor,
     matched: torch.Tensor,
     feats: dict,
     plane_obs: PlaneObs | None = None,
+    line_obs: LineObs | None = None,
 ) -> lm.PoseProblem:
     """Gather matched observations into a (B, N) PoseProblem (B = 1 for
     one frame's (N,) arrays): stereo (u, v, uR) when the keypoint has depth
-    (uR > 0), mono otherwise; plus the plane observations (none when
-    plane_obs is None)."""
+    (uR > 0), mono otherwise; plus the plane and line observations (no
+    rows when plane_obs / line_obs is None)."""
     kp = kp_idx.long()
     uv = matching.take_rows(feats["xy_und"], kp)
     ur = feats["u_right"].gather(-1, kp)
     if plane_obs is None:
         plane_obs = empty_plane_obs(0, kp.shape[:-1], kp.device)
+    if line_obs is None:
+        line_obs = empty_line_obs(0, kp.shape[:-1], kp.device)
     prob = lm.PoseProblem(
         pts_pos,
         torch.cat([uv, ur[..., None]], -1),
@@ -71,6 +93,7 @@ def build_point_problem(
         ur > 0,
         matched,
         *plane_obs,
+        *line_obs,
     )
     return prob if kp.dim() == 2 else lm.PoseProblem(*(f[None] for f in prob))
 
@@ -86,11 +109,12 @@ def projection_problem(
     scale_factor: float = 1.2,
     bank_stats: bool = True,
     plane_obs: PlaneObs | None = None,
+    line_obs: LineObs | None = None,
 ) -> tuple[lm.PoseProblem, dict]:
     """Projection matching in the shared frustum candidate set `cand`
     (matching.frustum_candidates) -> keypoint-indexed PoseProblem with the
-    plane observations (no solve).  bank_stats=False skips the bank-level
-    scatter outputs."""
+    plane and line observations (no solve).  bank_stats=False skips the
+    bank-level scatter outputs."""
     n_kp = feats["desc"].shape[-2]
     n_bank = pts["pos"].shape[-2]
     CAND = cand["pos"].shape[-2]
@@ -129,7 +153,7 @@ def projection_problem(
     prob = build_point_problem(
         matching.take_rows(cand["pos"], safe_c),
         torch.arange(n_kp, dtype=torch.int32, device=tgt.device).expand(matched_kp.shape),
-        matched_kp, feats, plane_obs,
+        matched_kp, feats, plane_obs, line_obs,
     )
     aux = {
         "point_of_kp": point_of_kp,
@@ -161,6 +185,7 @@ def projection_post(out: dict, aux: dict, n_bank: int) -> dict:
         "kp_mp": torch.where(kp_inlier, point_of_kp, -1),
         "kp_inlier": kp_inlier,
         "inlier_pl": out["inlier_pl"],
+        "inlier_ln": out["inlier_ln"],
         "n_matches": aux["n_matches"],
         "n_pt_inliers": hit.sum(-1),
         "visible": aux["visible"],
@@ -196,17 +221,20 @@ def track_projection(
     params: lm.SolveParams | None = None,
     translation_only: bool = False,
     use_planes: bool = False,
+    line_obs: LineObs | None = None,
+    use_lines: bool = False,
 ) -> dict:
     """Project each stream's landmark bank (B, N, ...) from its seed pose
     T_seed (B, 4, 4), match, solve: one batch of B problems."""
     prob, aux = projection_problem(
         pts, T_seed, feats, K, radius, image_hw, cand,
         scale_factor=scale_factor, bank_stats=bank_stats, plane_obs=plane_obs,
+        line_obs=line_obs,
     )
     out = lm.solve_pose(
         prob, T_seed, K, bf, params, translation_only=translation_only,
         n_rounds=n_rounds, n_iters=n_iters, gauss_newton=gauss_newton,
-        use_planes=use_planes,
+        use_planes=use_planes, use_lines=use_lines,
     )
     return projection_post(out, aux, pts["pos"].shape[-2])
 

@@ -2,9 +2,9 @@
 manhattanslam_tpu/ops/eig33.py).
 
 The trigonometric (Cardano) closed form, op for op as the reference
-computes it, including its cofactor determinant: block normals, MSEs and
-the seed gate read these values, and ``torch.linalg.eigh`` picks and
-rounds eigenvectors differently.  Every function takes (..., 3, 3).
+computes it, including its cofactor determinant: block normals, MSEs,
+the seed gate and the 3D line directions read these values, and
+``torch.linalg.eigh`` picks and rounds eigenvectors differently.  Every function takes (..., 3, 3).
 """
 
 from __future__ import annotations
@@ -73,3 +73,9 @@ def eig33_smallest(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(smallest eigenvalue (...,), unit eigenvector (..., 3))."""
     lam = _eigenvalues(A)
     return lam[..., 0], _eigenvector(A, lam[..., 0])
+
+
+def eig33_largest(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(largest eigenvalue (...,), unit eigenvector (..., 3))."""
+    lam = _eigenvalues(A)
+    return lam[..., 2], _eigenvector(A, lam[..., 2])

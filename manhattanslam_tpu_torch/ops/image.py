@@ -1,5 +1,6 @@
-"""Image primitives: pyramid, separable Gaussian blur, 3x3 max filter
-(counterpart of manhattanslam_tpu/ops/image.py).
+"""Image primitives: pyramid, separable Gaussian blur, Sobel gradients,
+2x2 box downsample, 3x3 max filter (counterpart of
+manhattanslam_tpu/ops/image.py).
 
 Every function takes images (..., H, W): one image, or a stack of B
 streams' images (the batched replay), computed image by image with the
@@ -105,6 +106,30 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torc
     k = gauss_kernel1d(ksize, sigma)
     x = _conv1d_shifts(img, k, axis=0, pad_mode="reflect")
     return _conv1d_shifts(x, k, axis=1, pad_mode="reflect")
+
+
+def sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """3x3 Sobel gradients (gx, gy), edge-padded, as the reference's two
+    separable passes: [1, 2, 1] across, then [-1, 0, 1] along."""
+    smooth = np.array([1.0, 2.0, 1.0], np.float32)
+    diff = np.array([-1.0, 0.0, 1.0], np.float32)
+    sy = _conv1d_shifts(img, smooth, axis=0, pad_mode="replicate")
+    gx = _conv1d_shifts(sy, diff, axis=1, pad_mode="replicate")
+    sx = _conv1d_shifts(img, smooth, axis=1, pad_mode="replicate")
+    gy = _conv1d_shifts(sx, diff, axis=0, pad_mode="replicate")
+    return gx, gy
+
+
+def avgpool2(img: torch.Tensor) -> torch.Tensor:
+    """2x2 box downsample (..., H, W) -> (..., H//2, W//2), an odd last row
+    or column dropped.  The reference multiplies by two 0.5-banded
+    operators (``avgpool2_matrix_np``, rows then columns); this takes the
+    same two halves per output in the same order, and on integer-valued
+    images, as the tracker's u8 gray is, every sum is exact in any order."""
+    h, w = img.shape[-2:]
+    x = img[..., : h // 2 * 2, : w // 2 * 2]
+    rows = 0.5 * x[..., 0::2, :] + 0.5 * x[..., 1::2, :]
+    return 0.5 * rows[..., 0::2] + 0.5 * rows[..., 1::2]
 
 
 def shift2d(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:

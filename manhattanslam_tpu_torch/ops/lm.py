@@ -1,27 +1,30 @@
-"""Pose solver over point and plane residuals (counterpart of
-manhattanslam_tpu/ops/lm.py, the point and plane families).
+"""Pose solver over point, line and plane residuals (counterpart of
+manhattanslam_tpu/ops/lm.py).
 
 The reference solves one 6-dof SE(3) pose with unary edges, so the g2o
 machinery reduces to accumulating a 6x6 (or, translation only, 3x3) normal
 system.  Point rows fuse the mono and stereo edges: the residual is obs
 (u, v, uR) minus the projection (u, v, u - bf/z), with the uR component
-weighted out for rows without depth.  Plane rows compare a map plane,
+weighted out for rows without depth.  Line rows are one per endpoint of a
+matched map line: the observed image line l (normalized) at the projected
+endpoint, l . (u, v, 1).  Plane rows compare a map plane,
 moved into the camera by the pose, with the observed plane:
 ``plane_ominus`` (3 rows), ``plane_ominus_par`` and ``plane_ominus_ver``
 (2 rows each, parallel and perpendicular structural planes).  The
 schedule is the reference's: rounds of iterations, chi2 re-gating of every
-family between rounds (5.991 mono / 7.815 stereo / Plane.Chi / Plane.VPChi)
-against the ORIGINAL masks, the Huber kernel on for the first two rounds.
+family between rounds (5.991 mono / 7.815 stereo / 2 x 5.991 line /
+Plane.Chi / Plane.VPChi) against the ORIGINAL masks, the Huber kernel on
+for the first two rounds (lines at 7.815, weighted by sqrt(ln_info)).
 ``translation_only`` freezes the rotation (the Manhattan decoupled solve):
 3 dof, retracted by adding to the translation.
 
-Point Jacobians are closed-form, and so are the plane rows' (the
+Point and line Jacobians are closed-form, and so are the plane rows' (the
 reference linearizes those with ``jax.linearize``): the map plane moved by
 the pose is differentiated wrt the increment, then carried through the
 normalization, the azimuth/elevation frame of the moved plane and the
-residual angles; their IRLS weights are applied as row scales afterwards.  Every function takes a batch dimension B
-written out: the frame step solves its candidate problems as one batch.
-The line family comes with the slice that observes lines.
+residual angles; their IRLS weights are applied as row scales afterwards.
+Every function takes a batch dimension B written out: the frame step
+solves its candidate problems as one batch.
 """
 
 from __future__ import annotations
@@ -58,11 +61,19 @@ class PoseProblem(NamedTuple):
     ver_w: torch.Tensor
     ver_obs: torch.Tensor
     ver_mask: torch.Tensor
+    # line endpoints, two rows per matched line (B, 2L, ...): the world
+    # endpoint and the observed normalized image line; None: no lines
+    ln_xw: torch.Tensor | None = None  # (B, NL, 3)
+    ln_eq: torch.Tensor | None = None  # (B, NL, 3)
+    ln_info: torch.Tensor | None = None  # (B, NL)
+    ln_mask: torch.Tensor | None = None  # (B, NL) bool
 
 
 def stack_problems(probs: list[PoseProblem]) -> PoseProblem:
-    """Concatenate problems along the batch axis."""
-    return PoseProblem(*(torch.cat(fields) for fields in zip(*probs)))
+    """Concatenate problems along the batch axis (a family that none of
+    them carries stays None)."""
+    return PoseProblem(*(
+        None if fields[0] is None else torch.cat(fields) for fields in zip(*probs)))
 
 
 class SolveParams(NamedTuple):
@@ -336,6 +347,43 @@ def _jacobians(T, prob: PoseProblem, K, bf, translation_only: bool = False) -> t
     return -(A @ dpc) * _comp_mask(prob)[..., None]
 
 
+# -------------------------------------------------------------- line family
+def _project(T: torch.Tensor, xw: torch.Tensor, K: torch.Tensor):
+    """Camera points (B, N, 3) of world points and their pixel (u, v)."""
+    pc = _camera_points(T, xw)
+    zi = _safe_z(pc[..., 2])
+    return pc, pc[..., 0] / zi * K[0, 0] + K[0, 2], pc[..., 1] / zi * K[1, 1] + K[1, 2]
+
+
+def line_residuals(T: torch.Tensor, prob: PoseProblem, K: torch.Tensor) -> torch.Tensor:
+    """(B, NL) raw endpoint residuals l . (u, v, 1) at poses T."""
+    _, u, v = _project(T, prob.ln_xw, K)
+    eq = prob.ln_eq
+    return eq[..., 0] * u + eq[..., 1] * v + eq[..., 2]
+
+
+def _line_jacobians(T, prob: PoseProblem, K, translation_only: bool = False) -> torch.Tensor:
+    """(B, NL, dof) closed-form Jacobians of the endpoint residuals wrt the
+    left-multiplied twist: l0 du/dpc + l1 dv/dpc, times [I | -hat(pc)]."""
+    fx, fy = K[0, 0], K[1, 1]
+    pc = _camera_points(T, prob.ln_xw)
+    zi = 1.0 / _safe_z(pc[..., 2])
+    zero = torch.zeros_like(zi)
+    row_u = torch.stack([fx * zi, zero, -fx * pc[..., 0] * zi * zi], -1)
+    row_v = torch.stack([zero, fy * zi, -fy * pc[..., 1] * zi * zi], -1)
+    eq = prob.ln_eq
+    lrow = eq[..., 0, None] * row_u + eq[..., 1, None] * row_v  # (B, NL, 3)
+    if translation_only:
+        return lrow
+    eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(pc.shape + (3,))
+    dpc = torch.cat([eye, -se3.hat(pc)], dim=-1)  # (B, NL, 3, 6)
+    return (lrow[..., None, :] @ dpc)[..., 0, :]
+
+
+def line_chi2(r: torch.Tensor, prob: PoseProblem) -> torch.Tensor:
+    return r * r * prob.ln_info
+
+
 # ------------------------------------------------------------- plane family
 def _plane_rows(T: torch.Tensor, prob: PoseProblem, masks, translation_only: bool | None = None):
     """UNWEIGHTED masked plane-family rows at poses T, (B, R):
@@ -446,41 +494,62 @@ def _where(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class _Solver:
-    """One solve's fixed problem and options; T is (B, 4, 4)."""
+    """One solve's fixed problem and options; T is (B, 4, 4).  The masks
+    are a dict over the families in use: "pt", then "ln" with lines, then
+    "pl", "par", "ver" with planes."""
 
-    def __init__(self, prob, K, bf, params, translation_only, use_planes):
+    def __init__(self, prob, K, bf, params, translation_only, use_planes, use_lines):
         self.prob, self.K, self.bf, self.params = prob, K, bf, params
         self.translation_only = translation_only
         self.use_planes = use_planes
+        self.use_lines = use_lines
         self.dof = 3 if translation_only else 6
+
+    @staticmethod
+    def plane_masks(masks):
+        return masks["pl"], masks["par"], masks["ver"]
 
     def point_rows(self, T, m_pt, huber_on):
         r = residuals(T, self.prob, self.K, self.bf)
         w = _huber_w(chi2(r, self.prob), chi2_threshold(self.prob), m_pt, huber_on)
         return r, w * torch.sqrt(self.prob.pt_info)
 
+    def line_rows(self, T, m_ln, huber_on):
+        r = line_residuals(T, self.prob, self.K)
+        w = _huber_w(line_chi2(r, self.prob), CHI2_STEREO, m_ln, huber_on)
+        return r, w * torch.sqrt(self.prob.ln_info)
+
     def full_system(self, T, masks, huber_on):
         """H (B,dof,dof), g (B,dof), cost (B,) of every weighted row at T."""
         B = T.shape[0]
-        r, w = self.point_rows(T, masks[0], huber_on)
+        r, w = self.point_rows(T, masks["pt"], huber_on)
         J = _jacobians(T, self.prob, self.K, self.bf, self.translation_only) * w[..., None, None]
         Js, rs = [J.reshape(B, -1, self.dof)], [(r * w[..., None]).reshape(B, -1)]
+        if self.use_lines:
+            rl, wl = self.line_rows(T, masks["ln"], huber_on)
+            Js.append(_line_jacobians(T, self.prob, self.K, self.translation_only) * wl[..., None])
+            rs.append(rl * wl)
         if self.use_planes:
-            rp, Jq = _plane_rows(T, self.prob, masks[1:], self.translation_only)
-            s = _plane_row_scales(rp, self.prob, self.params, masks[1:], huber_on)
+            pm = self.plane_masks(masks)
+            rp, Jq = _plane_rows(T, self.prob, pm, self.translation_only)
+            s = _plane_row_scales(rp, self.prob, self.params, pm, huber_on)
             Js.append(Jq * s[..., None])
             rs.append(rp * s)
-        J, rw = (torch.cat(Js, 1), torch.cat(rs, 1)) if self.use_planes else (Js[0], rs[0])
+        J, rw = (torch.cat(Js, 1), torch.cat(rs, 1)) if len(Js) > 1 else (Js[0], rs[0])
         Jt = J.transpose(-1, -2)
         return Jt @ J, (Jt @ rw[..., None])[..., 0], 0.5 * torch.sum(rw * rw, -1)
 
     def cost(self, T, masks, huber_on):
-        r, w = self.point_rows(T, masks[0], huber_on)
+        r, w = self.point_rows(T, masks["pt"], huber_on)
         c = torch.sum((r * w[..., None]) ** 2, dim=(-1, -2))
+        if self.use_lines:
+            rl, wl = self.line_rows(T, masks["ln"], huber_on)
+            c = c + torch.sum((rl * wl) ** 2, -1)
         c = 0.5 * c
         if self.use_planes:
-            rp = _plane_rows(T, self.prob, masks[1:])
-            s = _plane_row_scales(rp, self.prob, self.params, masks[1:], huber_on)
+            pm = self.plane_masks(masks)
+            rp = _plane_rows(T, self.prob, pm)
+            s = _plane_row_scales(rp, self.prob, self.params, pm, huber_on)
             c = c + 0.5 * torch.sum((rp * s) ** 2, -1)
         return c
 
@@ -525,14 +594,16 @@ class _Solver:
         # decides between it and the best accepted iterate
         return _where(self.cost(T, masks, huber_on) < c_acc, T, T_acc)
 
-    def chi(self, T):
-        """Per-edge chi2 of each family at T: (pt, pl, par, ver)."""
-        c_pt = chi2(residuals(T, self.prob, self.K, self.bf), self.prob)
-        if not self.use_planes:
-            return (c_pt,)
+    def chi(self, T) -> dict:
+        """Per-edge chi2 of each family in use at T."""
         p = self.prob
-        rp = _plane_rows(T, p, (p.pl_mask, p.par_mask, p.ver_mask))
-        return (c_pt,) + _plane_chi2(rp, p, self.params)[0]
+        out = {"pt": chi2(residuals(T, p, self.K, self.bf), p)}
+        if self.use_lines:
+            out["ln"] = line_chi2(line_residuals(T, p, self.K), p)
+        if self.use_planes:
+            rp = _plane_rows(T, p, (p.pl_mask, p.par_mask, p.ver_mask))
+            out.update(zip(("pl", "par", "ver"), _plane_chi2(rp, p, self.params)[0]))
+        return out
 
 
 def solve_pose(
@@ -546,36 +617,45 @@ def solve_pose(
     n_iters: int = 10,
     gauss_newton: bool = False,
     use_planes: bool = False,
+    use_lines: bool = False,
 ) -> dict:
     """Run the round schedule on a batch of problems from poses T0 (B,4,4).
-    use_planes=False leaves the plane families out (the candidate solves).
+    use_planes / use_lines=False leave those families out (the candidate
+    solves); use_lines needs the problem's line rows.
 
-    Returns T (B,4,4), inlier_pt / inlier_pl / inlier_par / inlier_ver
-    masks, n_inliers (B,) over every family and chi2 (B,)."""
+    Returns T (B,4,4), inlier_pt / inlier_ln / inlier_pl / inlier_par /
+    inlier_ver masks, n_inliers (B,) over every family and chi2 (B,)."""
     params = default_params() if params is None else params
-    s = _Solver(prob, K, bf, params, translation_only, use_planes)
+    s = _Solver(prob, K, bf, params, translation_only, use_planes, use_lines)
+    masks0 = {"pt": prob.pt_mask}
+    ths = {"pt": chi2_threshold(prob)}
+    if use_lines:
+        masks0["ln"], ths["ln"] = prob.ln_mask, 2.0 * CHI2_MONO
     if use_planes:
-        masks0 = (prob.pt_mask, prob.pl_mask, prob.par_mask, prob.ver_mask)
-        ths = (chi2_threshold(prob), params.plane_chi, params.vp_chi, params.vp_chi)
-    else:
-        masks0, ths = (prob.pt_mask,), (chi2_threshold(prob),)
+        masks0.update(pl=prob.pl_mask, par=prob.par_mask, ver=prob.ver_mask)
+        ths.update(pl=params.plane_chi, par=params.vp_chi, ver=params.vp_chi)
     run_round = s.round_gn if gauss_newton else s.round_lm
     T, masks = T0, masks0
     for rnd in range(n_rounds):
         T = run_round(T, masks, rnd < 2, n_iters)
         # re-gate against the ORIGINAL masks (edges can come back)
-        masks = tuple(m & (c <= th) for m, c, th in zip(masks0, s.chi(T), ths))
+        chis = s.chi(T)
+        masks = {k: m & (chis[k] <= ths[k]) for k, m in masks0.items()}
     chis = s.chi(T)
-    off = torch.zeros_like(prob.pl_mask)
-    inl = masks + (off,) * (4 - len(masks))
+    if not use_planes:
+        off = torch.zeros_like(prob.pl_mask)
+        masks_out = dict(masks, pl=off, par=off, ver=off)
+    else:
+        masks_out = dict(masks)
+    if not use_lines:
+        masks_out["ln"] = (torch.zeros_like(prob.ln_mask) if prob.ln_mask is not None
+                           else prob.pt_mask.new_zeros(prob.pt_mask.shape[:-1] + (0,)))
     return {
         "T": T,
-        "inlier_pt": inl[0],
-        "inlier_pl": inl[1],
-        "inlier_par": inl[2],
-        "inlier_ver": inl[3],
-        "n_inliers": _total(m.sum(-1) for m in masks),
-        "chi2": _total(torch.where(m, c, torch.zeros_like(c)).sum(-1) for m, c in zip(masks, chis)),
+        **{"inlier_" + k: masks_out[k] for k in ("pt", "ln", "pl", "par", "ver")},
+        "n_inliers": _total(m.sum(-1) for m in masks.values()),
+        "chi2": _total(torch.where(m, chis[k], torch.zeros_like(chis[k])).sum(-1)
+                       for k, m in masks.items()),
     }
 
 

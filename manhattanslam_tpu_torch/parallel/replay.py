@@ -3,10 +3,11 @@ stream's start, each step's frames.  chip_smoke.py, tools/profile_torch_track.py
 and the replay tests all drive ``build_throughput_step`` through these, so
 their numbers come from the same traffic.
 
-The shared view is keyframe 0 of the port's tracker with planes on: frame
-0's depth points with their distance bounds, its keypoint matches for the
-reference-keyframe bank, its planes as map planes and the Manhattan
-registries of their perpendicular pairs and triples.  Stream s replays the sequence from frame
+The shared view is keyframe 0 of the port's tracker with planes and lines
+on: frame 0's depth points with their distance bounds, its keypoint
+matches for the reference-keyframe bank, its planes as map planes with
+the Manhattan registries of their perpendicular pairs and triples, and its
+lifted lines as map lines.  Stream s replays the sequence from frame
 ``first[s]`` and starts at that frame's ground-truth pose (a stream that
 starts at the identity would take its whole offset from frame 0 as its
 first velocity).
@@ -27,7 +28,7 @@ from manhattanslam_tpu_torch.slam_map import SlamMap
 def shared_view(cfg: SlamConfig, frame0: tuple, device) -> tuple[dict, FastTracker]:
     """The view of keyframe 0 made from frame0 = (timestamp, gray, depth),
     and the tracker whose map and registries hold it."""
-    tracker = FastTracker(cfg, SlamMap(cfg), device, enable_planes=True)
+    tracker = FastTracker(cfg, SlamMap(cfg), device, enable_planes=True, enable_lines=True)
     tracker.track(*frame0)
     host = dt.build_host_view(cfg, tracker.map, tracker.ref_kf, tracker.reg2, tracker.reg3)
     return dt.upload_view(host, device), tracker

@@ -1,5 +1,5 @@
-"""The world model's point, plane and keyframe tables and the Manhattan
-registries (counterpart of manhattanslam_tpu/slam_map.py).
+"""The world model's point, line, plane and keyframe tables and the
+Manhattan registries (counterpart of manhattanslam_tpu/slam_map.py).
 
 Capacity-bounded numpy arrays with validity masks on the host, exactly the
 reference package's layout; the tracker uploads a device view of the
@@ -7,7 +7,7 @@ tracking-relevant rows (frontend/device_tracker.py).  Descriptors are
 kept as uint32 words here and cross to the device as int32 with the same
 bits.  The Manhattan registries map unordered plane-id pairs and triples
 to the keyframe that first saw them mutually perpendicular (Map.cc:247-285).
-Lines and keyframe retirement come with the slices that use them.
+Keyframe retirement comes with the mapping back end.
 """
 
 from __future__ import annotations
@@ -37,6 +37,17 @@ class SlamMap:
         self.mp_found = np.ones(P, np.int32)
         self.mp_first_kf = np.full(P, -1, np.int32)
 
+        # --- map lines (MapLine.h) ---
+        L = c.max_map_lines
+        self.ml_sp = np.zeros((L, 3), np.float32)
+        self.ml_ep = np.zeros((L, 3), np.float32)
+        self.ml_desc = np.zeros((L, 32), np.float32)  # float band descriptor
+        self.ml_valid = np.zeros(L, bool)
+        self.ml_n_obs = np.zeros(L, np.int32)
+        self.ml_visible = np.ones(L, np.int32)
+        self.ml_found = np.ones(L, np.int32)
+        self.ml_first_kf = np.full(L, -1, np.int32)
+
         # --- map planes (MapPlane.h) ---
         PL = c.max_map_planes
         self.pl_coeffs = np.zeros((PL, 4), np.float32)  # world Hesse, w >= 0
@@ -61,6 +72,7 @@ class SlamMap:
         self.kf_desc = np.zeros((KF, n_kp, 8), np.uint32)
         self.kf_kp_valid = np.zeros((KF, n_kp), bool)
         self.kf_mp_idx = np.full((KF, n_kp), -1, np.int32)  # kp -> map point
+        self.kf_ml_idx = np.full((KF, c.max_lines), -1, np.int32)  # frame line -> map line
         self.kf_pl_idx = np.full((KF, c.max_planes_frame), -1, np.int32)
         # per-KF camera-frame plane observations (DetectManhattan's MFm,
         # Tracking.cc:731-738)
@@ -113,6 +125,38 @@ class SlamMap:
         self.mp_found[idx] = 1
         self.mp_first_kf[idx] = kf_id
         return idx
+
+    # ---------------------------------------------------------------- lines
+    def observe_line(self, j: int, sp_w: np.ndarray, ep_w: np.ndarray, desc: np.ndarray) -> None:
+        """Refine map line j with a world-frame observation (the
+        MapLine::UpdateAverageDir and descriptor-refresh analog): running
+        averages of the direction and centre over the observations, the
+        extent grown to cover every endpoint along the averaged direction,
+        and the float descriptor tracking the normalized observation mean."""
+        n = max(int(self.ml_n_obs[j]), 1)
+        d_old = self.ml_ep[j] - self.ml_sp[j]
+        len_old = float(np.linalg.norm(d_old))
+        if len_old < 1e-9:
+            self.ml_sp[j], self.ml_ep[j] = sp_w, ep_w
+            return
+        d_new = ep_w - sp_w
+        if float(d_new @ d_old) < 0:  # orient consistently
+            sp_w, ep_w, d_new = ep_w, sp_w, -d_new
+        dir_old = d_old / len_old
+        nn = float(np.linalg.norm(d_new))
+        if nn < 1e-9:
+            return
+        dir_avg = dir_old * n + d_new / nn
+        dir_avg = dir_avg / max(float(np.linalg.norm(dir_avg)), 1e-9)
+        center = (0.5 * (self.ml_sp[j] + self.ml_ep[j]) * n + 0.5 * (sp_w + ep_w)) / (n + 1)
+        t = (np.stack([self.ml_sp[j], self.ml_ep[j], sp_w, ep_w]) - center) @ dir_avg
+        self.ml_sp[j] = (center + t.min() * dir_avg).astype(np.float32)
+        self.ml_ep[j] = (center + t.max() * dir_avg).astype(np.float32)
+        k = desc.shape[0]
+        mean = (self.ml_desc[j, :k] * n + desc) / (n + 1)
+        nm = float(np.linalg.norm(mean))
+        if nm > 1e-9:
+            self.ml_desc[j, :k] = (mean / nm).astype(np.float32)
 
     # --------------------------------------------------------------- planes
     def add_plane(self, coeffs: np.ndarray, pts: np.ndarray, kf_id: int) -> int:
@@ -179,6 +223,7 @@ class SlamMap:
         self.kf_desc[i] = feats_np["desc"]
         self.kf_kp_valid[i] = feats_np["valid"]
         self.kf_mp_idx[i] = -1
+        self.kf_ml_idx[i] = -1
         self.kf_pl_idx[i] = -1
         self.kf_plane_coeffs[i] = 0
         self.kf_plane_npts[i] = 0

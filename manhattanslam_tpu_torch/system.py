@@ -1,13 +1,16 @@
 """System facade (counterpart of manhattanslam_tpu/system.py), for the
-fused tracker with points and, on request, planes and Manhattan frames.
+fused tracker with points and, on request, planes, Manhattan frames and
+lines.
 
 Construct from a settings file or a SlamConfig, feed RGB-D frames through
 ``track``, save TUM trajectories.  The port runs ``fast=True`` with one
 frame per step and no pipeline; ``enable_planes=True`` adds plane
-extraction, plane residuals and the Manhattan decoupled pose.  Lines,
-surfels, the mapping back end and relocalization are not ported yet:
-asking for lines, surfels, chunks, the pipeline or the modular tracker
-raises ``NotImplementedError`` naming the slice that brings it.
+extraction, plane residuals and the Manhattan decoupled pose,
+``enable_lines=True`` line detection, association, line residuals and the
+map lines; with both the step is the reference's full body.  Surfels, the
+mapping back end and relocalization are not ported yet: asking for
+surfels, chunks, the pipeline or the modular tracker raises
+``NotImplementedError`` naming the slice that brings it.
 
 The system runs on CUDA unless ``device`` says otherwise; with no GPU it
 raises rather than falling back to the CPU.
@@ -41,7 +44,6 @@ class System:
             "fast=False (the modular tracker)": not fast,
             "chunk>1 (chunk mode, keyframes at chunk boundaries)": chunk > 1,
             "pipeline=True (chunk mode slice)": pipeline,
-            "enable_lines=True (lines slice)": enable_lines,
             "enable_surfels=True (surfels slice)": enable_surfels,
         }
         asked = [name for name, on in later.items() if on]
@@ -52,8 +54,9 @@ class System:
         self.cfg = settings if isinstance(settings, SlamConfig) else load_config(settings)
         self.device = resolve_device(device)
         self.enable_planes = enable_planes
+        self.enable_lines = enable_lines
         self.map = SlamMap(self.cfg)
-        self.tracker = FastTracker(self.cfg, self.map, self.device, enable_planes)
+        self.tracker = FastTracker(self.cfg, self.map, self.device, enable_planes, enable_lines)
 
     def track(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float):
         """Process one frame.  rgb: (H,W,3) uint8 or (H,W) gray; depth:
@@ -75,7 +78,8 @@ class System:
     def reset(self) -> None:
         """System reset (Tracking::Reset, Tracking.cc:2057-2087)."""
         self.map = SlamMap(self.cfg)
-        self.tracker = FastTracker(self.cfg, self.map, self.device, self.enable_planes)
+        self.tracker = FastTracker(
+            self.cfg, self.map, self.device, self.enable_planes, self.enable_lines)
 
     def shutdown(self) -> None:
         """Nothing is in flight: every track() call finishes its frame."""

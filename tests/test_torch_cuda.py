@@ -21,7 +21,7 @@ from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
 from manhattanslam_tpu_torch.io import trajectory as traj_io
-from manhattanslam_tpu_torch.ops import fast, image, kernel_build, orb, planes
+from manhattanslam_tpu_torch.ops import fast, image, kernel_build, lines, orb, planes
 from manhattanslam_tpu_torch.parallel import mesh, replay
 from manhattanslam_tpu_torch.system import System
 
@@ -320,7 +320,7 @@ def test_extractor_launches_fast_and_ic_angle_once_per_frame(cuda, b):
 
 
 def test_replay_step_matches_single_stream_step(cuda):
-    """The batched replay (plane branch on) on the card, 3 streams at
+    """The batched replay (the full body) on the card, 3 streams at
     different frame offsets against the shared view of keyframe 0: each
     stream's pose within 1e-3 m and 1e-3 rad of the single-stream step on
     the same frame and carry,
@@ -333,7 +333,7 @@ def test_replay_step_matches_single_stream_step(cuda):
     view, _ = replay.shared_view(cfg, frames[0], cuda)
     native = [dt.to_native(g, d) for _, g, d in frames]
     step = mesh.build_throughput_step(cfg, len(first), cuda)
-    single = dt.build_frame_step(cfg, cuda, enable_planes=True)
+    single = dt.build_frame_step(cfg, cuda, enable_planes=True, enable_lines=True)
     carry = replay.start_carry(cfg, seq, first, cuda)
     for i in range(3):
         g8, d16 = replay.step_frames(native, first, i, cuda)
@@ -438,6 +438,74 @@ def test_system_with_planes_on_cuda_matches_cpu(cuda):
         assert a is not None and b is not None, f"frame {i}"
     assert gpu.tracker.n_manhattan_frames == cpu.tracker.n_manhattan_frames >= 1
     assert gpu.map.manhattan_pairs == cpu.map.manhattan_pairs
+    pos_gpu = np.array([r[1] for r in gpu.tracker.trajectory_rows()])
+    pos_cpu = np.array([r[1] for r in cpu.tracker.trajectory_rows()])
+    assert np.sqrt(((pos_gpu - pos_cpu) ** 2).sum(1).mean()) < 1e-2
+
+
+def _u8_frames(cfg, view, idx):
+    seq = SyntheticSequence(n_frames=30, cam=cfg.camera, view=view)
+    native = [dt.to_native(*seq.frame(i)[1:]) for i in idx]
+    gray = torch.from_numpy(np.stack([g for g, _ in native]).astype(np.float32))
+    d16 = torch.from_numpy(np.stack([d for _, d in native]).astype(np.int32))
+    return gray, d16.to(torch.float32) * float(np.float32(1 / dt.DEPTH_QUANT))
+
+
+def test_line_detection_and_lifting_on_card_match_cpu(cuda):
+    """detect_lines (the half-resolution branch) and lift_lines_3d on two
+    640x480 frames each of the wall and near_corner views at TUM1, the
+    four in one call, on the card against the CPU.  Detection: each
+    frame's valid lines agree on at least 90% of them, and a line valid on
+    both with the same support has its endpoints within 0.05 px as an
+    unordered pair.  Not all equal: the card's atan2, cos and sin differ
+    from the CPU's by ulps, which can move an edge pixel whose angle or
+    rho sits on a bin boundary to the next bin, and the refit's float32
+    sums run in another order (atomics).  Lifting on the CPU's segments:
+    ok and n_inliers equal, endpoints within 1e-4 m."""
+    cfg = load_config(str(Path(__file__).resolve().parent.parent / "configs" / "TUM1.yaml"))
+    gw, dw = _u8_frames(cfg, "wall", (0, 10))
+    gn, dn = _u8_frames(cfg, "near_corner", (0, 10))
+    gray, depth = torch.cat([gw, gn]), torch.cat([dw, dn])
+    L = cfg.caps.max_lines
+    cpu = lines.detect_lines(gray, L)
+    gpu = {k: v.cpu() for k, v in lines.detect_lines(gray.to(cuda), L).items()}
+    for b in range(4):
+        vc, vg = cpu["valid"][b], gpu["valid"][b]
+        assert int(vc.sum()) >= 10, b
+        assert float((vc == vg)[vc | vg].float().mean()) >= 0.9, b
+        same = vc & vg & (cpu["response"][b] == gpu["response"][b])
+        assert int(same.sum()) >= 0.8 * int(vc.sum()), b
+        a = torch.stack([cpu["sp"][b], cpu["ep"][b]], 1)[same]
+        g = torch.stack([gpu["sp"][b], gpu["ep"][b]], 1)[same]
+        err = torch.minimum((a - g).abs().amax((1, 2)), (a - g.flip(1)).abs().amax((1, 2)))
+        assert float(err.max()) < 0.05, (b, err)
+    K = torch.from_numpy(cfg.camera.K)
+    lc = lines.lift_lines_3d(depth, K, cpu["sp"], cpu["ep"], cpu["valid"])
+    lg = {k: v.cpu() for k, v in lines.lift_lines_3d(
+        depth.to(cuda), K.to(cuda), cpu["sp"].to(cuda), cpu["ep"].to(cuda),
+        cpu["valid"].to(cuda)).items()}
+    assert torch.equal(lc["ok"], lg["ok"]) and int(lc["ok"].sum()) >= 20
+    assert torch.equal(lc["n_inliers"], lg["n_inliers"])
+    ok = lc["ok"]
+    for k in ("sp3", "ep3"):
+        assert float((lc[k][ok] - lg[k][ok]).abs().max()) < 1e-4, k
+
+
+def test_system_with_lines_on_cuda_matches_cpu(cuda):
+    """The full body (planes and lines) through System on the card and on
+    the CPU, 8 near_corner frames at small_cfg size: all tracked, map
+    lines on both, and the two trajectories within the 1 cm RMS of
+    test_system_on_cuda_matches_cpu (the same scale-level knife edge)."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="near_corner")
+    gpu = System(cfg, enable_planes=True, enable_lines=True)
+    cpu = System(cfg, enable_planes=True, enable_lines=True, device="cpu")
+    for i in range(8):
+        ts, gray, depth = seq.frame(i)
+        a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
+        assert a is not None and b is not None, f"frame {i}"
+    assert int(gpu.map.ml_valid.sum()) >= 3 and int(cpu.map.ml_valid.sum()) >= 3
+    assert int((gpu.tracker.last_result["line_assoc"] >= 0).sum()) >= 1
     pos_gpu = np.array([r[1] for r in gpu.tracker.trajectory_rows()])
     pos_cpu = np.array([r[1] for r in cpu.tracker.trajectory_rows()])
     assert np.sqrt(((pos_gpu - pos_cpu) ** 2).sum(1).mean()) < 1e-2

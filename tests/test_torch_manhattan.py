@@ -1,6 +1,7 @@
-"""Planes and the Manhattan frame in the port's solver and fused step
-against the reference, on the CPU at small_cfg size, on the box room's
-"corner" view (a floor and two perpendicular walls).
+"""Planes, the Manhattan frame and the full body in the port's solver and
+fused step against the reference, on the CPU at small_cfg size, on the
+box room's "corner" view (a floor and two perpendicular walls) and its
+"near_corner" view.
 
 - The plane maths: ``transform_plane_g2o`` within 1e-6, ``plane_ominus``
   and its parallel and perpendicular forms within 5e-6 (angles near 1.5
@@ -16,13 +17,21 @@ against the reference, on the CPU at small_cfg size, on the box room's
   carried across with ``convert`` from the reference tracker's map and
   registries, both given the reference's extracted planes: the same
   associations and decision, the rotation within 1e-5.
-- The slice as a whole: the port's ``FastTracker(enable_planes=True)``
-  against the reference ``FastTracker(enable_planes=True,
-  enable_lines=False)``, driven directly (no LocalMapper), 12 frames:
-  tracked flags, keyframe frames and ``manhattan_found`` /
-  ``use_manhattan`` per frame equal; the same map planes, pairs and
-  triples; poses within 1e-3 m / 1e-3 rad (the extractors' pyramids differ
-  by float32 ulps); port-vs-reference ATE under 5 mm.
+- The slice as a whole, with the full body (planes and lines, the
+  reference's defaults; both trackers below share the reference's one
+  compiled step): the port's ``FastTracker(enable_planes=True,
+  enable_lines=True)`` against the reference's, driven directly (no
+  LocalMapper).  12 corner frames: tracked flags, keyframe frames and
+  ``manhattan_found`` / ``use_manhattan`` per frame equal; the same map
+  planes, pairs and triples; poses within 1e-3 m / 1e-3 rad (the
+  extractors' pyramids differ by float32 ulps); port-vs-reference ATE
+  under 5 mm.  8 near_corner frames (about 10 line associations a
+  frame): tracked flags and keyframes equal, poses within 1e-3 m / 1e-3
+  rad, each frame line's associated map line equal on every frame, the
+  same map lines (endpoints within 1e-4 m, descriptors within 1e-5) and
+  keyframe line slots, the line association of a view carried across
+  with ``convert`` equal, and the view after the keyframe row diffs equal
+  to a full upload.
 """
 
 import re
@@ -39,10 +48,12 @@ from manhattanslam_tpu.frontend import device_tracker as jdt
 from manhattanslam_tpu.frontend.fast_tracking import FastTracker as JaxFastTracker
 from manhattanslam_tpu.geometry import se3 as jse3
 from manhattanslam_tpu.io import trajectory as traj_io
+from manhattanslam_tpu.ops import lines as jlines
 from manhattanslam_tpu.ops import lm as jlm
 from manhattanslam_tpu.ops import planes as jplanes
 from manhattanslam_tpu.slam_map import SlamMap as JaxSlamMap
 from manhattanslam_tpu_torch import convert
+from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence as PortSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as pdt
 from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
 from manhattanslam_tpu_torch.geometry import se3 as pse3
@@ -188,9 +199,9 @@ def test_solve_pose_with_planes_matches_reference(translation_only, gauss_newton
 @pytest.fixture(scope="module")
 def tracked(small_cfg):
     seq = SyntheticSequence(n_frames=N_FRAMES, cam=small_cfg.camera, view="corner")
-    ref = JaxFastTracker(small_cfg, JaxSlamMap(small_cfg), enable_planes=True, enable_lines=False)
+    ref = JaxFastTracker(small_cfg, JaxSlamMap(small_cfg), enable_planes=True, enable_lines=True)
     pcfg = port_cfg(small_cfg)
-    port = FastTracker(pcfg, SlamMap(pcfg), CPU, enable_planes=True)
+    port = FastTracker(pcfg, SlamMap(pcfg), CPU, enable_planes=True, enable_lines=True)
     rows = []
     for i in range(N_FRAMES):
         ts, gray, depth = seq.frame(i)
@@ -315,3 +326,101 @@ def test_association_and_manhattan_on_converted_view(tracked, small_cfg):
     # the Manhattan rotation is the camera's (up to the gauge of frame 0)
     R_gt = (np.linalg.inv(seq.poses[-1]) @ seq.poses[0])[:3, :3]
     assert rot_angle(R[0].numpy().astype(np.float64) @ R_gt.T) < np.radians(2.0)
+
+
+# -------------------------------------------------------- lines in the slice
+N_LINE_FRAMES = 8
+
+
+@pytest.fixture(scope="module")
+def tracked_lines(small_cfg):
+    """The near_corner view (the port's renderer: the floor corner from
+    1.8 m) through both full-body trackers; the reference's step is the
+    compiled one of the corner run above."""
+    seq = PortSequence(n_frames=12, cam=port_cfg(small_cfg).camera, view="near_corner")
+    ref = JaxFastTracker(small_cfg, JaxSlamMap(small_cfg), enable_planes=True, enable_lines=True)
+    pcfg = port_cfg(small_cfg)
+    port = FastTracker(pcfg, SlamMap(pcfg), CPU, enable_planes=True, enable_lines=True)
+    rows = []
+    for i in range(N_LINE_FRAMES):
+        ts, gray, depth = seq.frame(i)
+        a, b = ref.track(ts, gray, depth), port.track(ts, gray, depth)
+        assoc = None
+        if i:
+            assoc = (np.asarray(jax.device_get(ref.last_result["line_assoc"])),
+                     port.last_result["line_assoc"].numpy())
+        rows.append((a, b, assoc))
+    return seq, ref, port, rows
+
+
+def test_full_slice_tracks_like_reference(tracked_lines):
+    _, ref, port, rows = tracked_lines
+    assert all(a is not None and b is not None for a, b, _ in rows)
+    assert [r[2] for r in port.frame_log] == [r[2] for r in ref.frame_log]
+    n = ref.map.n_kf
+    assert port.map.n_kf == n
+    np.testing.assert_array_equal(port.map.kf_frame_id[:n], ref.map.kf_frame_id[:n])
+    for i, (a, b, _) in enumerate(rows):
+        d = np.linalg.inv(a.astype(np.float64)) @ b.astype(np.float64)
+        assert np.linalg.norm(d[:3, 3]) < 1e-3 and rot_angle(d[:3, :3]) < 1e-3, i
+
+
+def test_full_slice_line_associations_like_reference(tracked_lines):
+    _, _, _, rows = tracked_lines
+    n_assoc = []
+    for i, (_, _, (want, got)) in enumerate(rows[1:], 1):
+        np.testing.assert_array_equal(got, want, err_msg=f"frame {i}")
+        n_assoc.append(int((got >= 0).sum()))
+    assert min(n_assoc) >= 1
+
+
+def test_full_slice_map_lines_like_reference(tracked_lines):
+    _, ref, port, _ = tracked_lines
+    np.testing.assert_array_equal(port.map.ml_valid, ref.map.ml_valid)
+    v = ref.map.ml_valid
+    assert v.sum() >= 3
+    for k in ("ml_sp", "ml_ep"):
+        np.testing.assert_allclose(getattr(port.map, k)[v], getattr(ref.map, k)[v], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(port.map.ml_desc[v], ref.map.ml_desc[v], rtol=0, atol=1e-5)
+    for k in ("ml_n_obs", "ml_visible", "ml_found", "ml_first_kf", "kf_ml_idx"):
+        np.testing.assert_array_equal(getattr(port.map, k), getattr(ref.map, k), err_msg=k)
+
+
+def test_view_with_lines_equals_full_upload(tracked_lines):
+    _, _, port, _ = tracked_lines
+    host = pdt.build_host_view(port.cfg, port.map, port.ref_kf, port.reg2, port.reg3)
+    full = pdt.upload_view(host, CPU)
+    assert set(port.view) == set(full)
+    for k in full:
+        assert torch.equal(port.view[k], full[k]), k
+    assert int(port.view["ml_valid"].sum()) >= 3
+
+
+def test_line_association_on_converted_view(tracked_lines, small_cfg):
+    """The reference tracker's map carried into the port by convert; both
+    packages' association of the reference's last-frame lines at its last
+    pose."""
+    seq, ref, _, _ = tracked_lines
+    pcfg = port_cfg(small_cfg)
+    tables = {k: getattr(ref.map, k) for k in convert.MAP_TABLES + convert.MAP_SCALARS}
+    m = convert.slam_map_from_numpy(pcfg, tables)
+    view = pdt.upload_view(pdt.build_host_view(pcfg, m, ref.ref_kf), CPU)
+    view_ref = jdt.build_map_view(small_cfg, ref.map)
+    for k in ("ml_sp", "ml_ep", "ml_desc", "ml_valid"):
+        np.testing.assert_array_equal(view[k].numpy(), np.asarray(view_ref[k]), err_msg=k)
+    gray = pdt.to_native(*seq.frame(N_LINE_FRAMES - 1)[1:])[0].astype(np.float32)
+    det = jax.device_get(jlines.detect_lines(jnp.asarray(gray), small_cfg.caps.max_lines))
+    desc = np.asarray(jlines.line_descriptors(jnp.asarray(gray), jnp.asarray(det["sp"]),
+                                              jnp.asarray(det["ep"])))
+    hw = (small_cfg.camera.height, small_cfg.camera.width)
+    K = np.asarray(small_cfg.camera.K, np.float32)
+    ref_assoc, ref_vis = (np.asarray(x) for x in jdt.associate_lines_device(
+        {k: jnp.asarray(v) for k, v in det.items()}, jnp.asarray(desc), jnp.asarray(ref.T_cw),
+        view_ref, jnp.asarray(K), image_hw=hw))
+    assoc, vis = pdt.associate_lines_device(
+        {k: _t(det[k])[None] for k in ("sp", "ep", "valid", "angle")}, _t(desc)[None],
+        _t(ref.T_cw)[None], view, _t(K), hw)
+    assoc, vis = assoc[0].numpy(), vis[0].numpy()
+    np.testing.assert_array_equal(assoc, ref_assoc)
+    np.testing.assert_array_equal(vis, ref_vis)
+    assert (ref_assoc >= 0).sum() >= 3

@@ -8,15 +8,17 @@ batch-gridded kernel through its custom_vmap rule).  FAST scores and BRIEF
 words are exact; IC angles agree within 1e-4 rad (float32 moments in
 another order).  Each batched plain version equals a loop of single calls.
 
-The slice: the port's ``build_throughput_step`` at B = 2 with the plane
-branch on, two streams of the box room's "corner" view at different frame
-offsets, against the reference's fused body with planes on and lines off
-vmapped over the streams with one shared view (``mesh.py:104-126``, built
-here so nothing in the reference changes), both from the same view (with
-the map planes and Manhattan registries of keyframe 0) and the same carry.
-Per stream and step: pose within 1e-3 m and 1e-3 rad (the two pyramids
-differ by float32 ulps, which can swap a keypoint at a coarse level),
-tracked_ok, n_inliers, manhattan_found and use_manhattan equal.
+The slice: the port's ``build_throughput_step`` at B = 2, the full body
+(points, planes with the Manhattan pose, and lines), two streams of the
+box room's "corner" view at different frame offsets, against the
+reference's own ``build_throughput_step(small_cfg, 2)`` (its full fused
+body vmapped over the streams with one shared view, as
+tests/test_parallel.py builds it), both from the same view (keyframe 0
+with its map planes, Manhattan registries and map lines) and the same
+carry.  Per stream and step: pose within 1e-3 m and 1e-3 rad (the two
+pyramids differ by float32 ulps, which can swap a keypoint at a coarse
+level), tracked_ok, n_inliers (points, lines and planes),
+manhattan_found and use_manhattan equal.
 """
 
 import jax
@@ -152,10 +154,11 @@ def test_batched_grid_topk_with_more_streams_than_candidates():
 # ------------------------------------------------------------- the slice
 @pytest.fixture(scope="module")
 def replay(small_cfg):
-    """The shared view (keyframe 0 of the port's FastTracker with planes on,
-    on the corner view: its depth points with their distance bounds and
-    keyframe matches, its planes and Manhattan registries), the reference
-    map holding the same tables, the frames, and each stream's first pose.
+    """The shared view (keyframe 0 of the port's FastTracker with planes and
+    lines on, on the corner view: its depth points with their distance
+    bounds and keyframe matches, its planes and Manhattan registries, its
+    map lines), the reference map holding the same tables, the frames, and
+    each stream's first pose.
 
     bench.py's replay map (max distance 30 m for every point, no keyframe
     matches) tracks no stream of the points-only body: from the initial
@@ -184,16 +187,7 @@ def replay(small_cfg):
 def replay_runs(small_cfg, replay):
     pcfg, frames, native, view_ref, view, T0, _ = replay
     B = len(OFFSETS)
-    body = jdt.build_frame_body(small_cfg, use_pallas=False, enable_planes=True, enable_lines=False)
-    w = small_cfg.camera.width
-
-    def one(packed, carry, view):  # mirrors manhattanslam_tpu/parallel/mesh.py:104-126
-        gray, depth = jdt.unpack_frame(packed, w)
-        result, new_carry = body(gray, depth, carry, view)
-        keep = {k: result[k] for k in pmesh.RESULT_KEYS}
-        return keep, new_carry
-
-    ref_step = jax.jit(jax.vmap(one, in_axes=(0, 0, None)))
+    ref_step = jmesh.build_throughput_step(small_cfg, B)
     carry_ref = jax.device_get(jmesh.init_batched_carry(small_cfg, B))
     carry_ref["T_last"] = T0
     carry = convert.batched_carry_from_numpy(carry_ref, CPU)
@@ -213,6 +207,7 @@ def replay_runs(small_cfg, replay):
 def test_replay_matches_reference_vmapped_body(replay, replay_runs, stream):
     outs_ref, outs = replay_runs
     assert replay[-1] > 100  # the shared view holds a real map
+    assert int(replay[4]["ml_valid"].sum()) >= 1  # and map lines
     for i, (ref, out) in enumerate(zip(outs_ref, outs)):
         where = f"step {i}, stream {stream}"
         assert out["T"].shape == (len(OFFSETS), 4, 4)
@@ -225,17 +220,19 @@ def test_replay_matches_reference_vmapped_body(replay, replay_runs, stream):
         for k in ("manhattan_found", "use_manhattan"):
             assert bool(out[k][stream]) == bool(ref[k][stream]), (where, k)
         assert bool(out["manhattan_found"][stream]), where  # the view's registries hold
+    # the line branch associated frame lines with the view's map lines
+    assert sum(int((out["line_assoc"][stream] >= 0).sum()) for out in outs) >= 1
 
 
 def test_batched_entry_at_b1_equals_single_body(replay):
     """B = 1 through build_throughput_step is the single-stream step (both
-    with the plane branch)."""
+    the full body)."""
     pcfg, _, native, _, view, T0, _ = replay
     carry_b = pmesh.init_batched_carry(pcfg, 1, CPU)
     carry_b["T_last"] = torch.from_numpy(T0[:1])
     carry = {k: v[0].clone() for k, v in carry_b.items()}
     step_b = pmesh.build_throughput_step(pcfg, 1, CPU)
-    step = pdt.build_frame_step(pcfg, CPU, enable_planes=True)
+    step = pdt.build_frame_step(pcfg, CPU, enable_planes=True, enable_lines=True)
     for i in range(2):
         g8, d16 = preplay.step_frames(native, OFFSETS[:1], i, CPU)
         out_b, carry_b = step_b(g8, d16, carry_b, view)

@@ -159,10 +159,11 @@ def test_init_carry_matches_reference_layout(small_cfg):
 @pytest.mark.parametrize(
     "kwargs",
     [dict(fast=False), dict(chunk=4), dict(pipeline=True), dict(enable_planes=True, chunk=4),
-     dict(enable_lines=True), dict(enable_surfels=True)],
+     dict(enable_lines=True, chunk=4), dict(enable_surfels=True)],
 )
 def test_system_raises_for_later_slices(small_cfg, kwargs):
-    """Planes are ported; planes together with a later slice still raise."""
+    """Planes and lines are ported; either together with a later slice
+    still raises."""
     with pytest.raises(NotImplementedError):
         System(port_cfg(small_cfg), device="cpu", **kwargs)
 

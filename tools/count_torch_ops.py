@@ -7,12 +7,14 @@ Usage (from the repository root; no GPU needed):
 
 A count, not a time: torch.profiler (CPU activity) over two frames of the
 box room's "corner" view at 192x144 (the parity tests' small config),
-through System on the CPU with planes off and on, prints the aten
-operators per frame; then the operators of one evaluation of the plane
-rows and of one linearization of them (ops/lm.py ``_plane_rows``) for one
-stream with 8 planes in each family.  On the card each operator that
-computes is about one kernel launch; launches themselves are counted on
-the card by tools/profile_torch_track.py.
+through System on the CPU with planes off, planes on, and planes and
+lines on (the full body), prints the aten operators per frame, and those
+of the line branch alone (detection, descriptors, lifting) at 192x144 and
+at 640x480 (TUM1, the half-resolution branch); then the operators of one
+evaluation of the plane rows and of one linearization of them (ops/lm.py
+``_plane_rows``) for one stream with 8 planes in each family.  On the card
+each operator that computes is about one kernel launch; launches
+themselves are counted on the card by tools/profile_torch_track.py.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from manhattanslam_tpu_torch.config import (  # noqa: E402
     CameraConfig, CapacityConfig, OrbConfig, SlamConfig,
 )
+from manhattanslam_tpu_torch.config import load_config  # noqa: E402
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence  # noqa: E402
-from manhattanslam_tpu_torch.ops import lm  # noqa: E402
+from manhattanslam_tpu_torch.ops import lines, lm  # noqa: E402
 from manhattanslam_tpu_torch.system import System  # noqa: E402
 
 
@@ -52,8 +55,8 @@ def main() -> int:
     )
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="corner")
     frames = [seq.frame(i) for i in range(5)]
-    for planes in (False, True):
-        system = System(cfg, enable_planes=planes, device="cpu")
+    for planes, lines_on in ((False, False), (True, False), (True, True)):
+        system = System(cfg, enable_planes=planes, enable_lines=lines_on, device="cpu")
         for ts, gray, depth in frames[:3]:
             system.track(gray, depth, ts)
         it = iter(frames[3:])
@@ -66,7 +69,22 @@ def main() -> int:
             one()
             one()
         n = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / 2
-        print(f"frame step, planes {'on' if planes else 'off'}: {n:.0f} aten operators per frame")
+        print(f"frame step, planes {'on' if planes else 'off'}, lines {'on' if lines_on else 'off'}: "
+              f"{n:.0f} aten operators per frame")
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for c in (cfg, load_config(os.path.join(root, "configs", "TUM1.yaml"))):
+        _, gray, depth = SyntheticSequence(n_frames=2, cam=c.camera, view="near_corner").frame(0)
+        g, d = torch.from_numpy(gray.round()), torch.from_numpy(depth)
+        K = torch.from_numpy(c.camera.K)
+
+        def branch():
+            det = lines.detect_lines(g, c.caps.max_lines)
+            lines.line_descriptors(g, det["sp"], det["ep"])
+            lines.lift_lines_3d(d, K, det["sp"], det["ep"], det["valid"])
+
+        print(f"line detection, descriptors and lifting at {c.camera.width}x{c.camera.height}: "
+              f"{aten_ops(branch):.0f} aten operators")
 
     gen = torch.Generator().manual_seed(0)
 

@@ -3,7 +3,7 @@
 
 Usage (one CUDA card, from the repository root):
 
-    python3 tools/profile_torch_track.py [--planes] [--frames 10] [--warmup 5] [--trace PATH]
+    python3 tools/profile_torch_track.py [--planes] [--lines] [--frames 10] [--warmup 5] [--trace PATH]
     python3 tools/profile_torch_track.py --replay 8 [--frames 10] [--warmup 2]
 
 Tracks the synthetic 640x480 box room at the TUM1 camera with the port's
@@ -16,9 +16,11 @@ Chrome trace.
 
 `--planes` turns the plane and Manhattan branch on and tracks the
 "near_corner" view instead, where the Manhattan frame is found and used
-(chip_smoke.py's planes phase).  With `--replay B` it profiles the
-batched multi-sequence replay (parallel/mesh.py, which runs the plane
-branch): B streams of the near_corner view, stream s at frame offset s,
+(chip_smoke.py's planes phase); `--lines` adds the line branch (with
+`--planes`: the full body, chip_smoke.py's full phase).  With `--replay
+B` it profiles the batched multi-sequence replay (parallel/mesh.py, which
+runs the full body): B streams of the near_corner view, stream s at frame
+offset s,
 against the shared view of keyframe 0, as chip_smoke.py's replay phase.
 Every "per frame" figure is then per batched step of B frames.
 """
@@ -76,6 +78,8 @@ def main() -> int:
                     help="profile the batched replay of B streams instead")
     ap.add_argument("--planes", action="store_true",
                     help="the plane and Manhattan branch on, on the near_corner view")
+    ap.add_argument("--lines", action="store_true",
+                    help="the line branch on, on the near_corner view")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_track: needs a CUDA device", file=sys.stderr)
@@ -84,7 +88,7 @@ def main() -> int:
     cfg = load_config(os.path.join(root, "configs", "TUM1.yaml"))
     n = args.warmup + args.frames
     dev = torch.device("cuda")
-    view = "near_corner" if args.planes or args.replay else "wall"
+    view = "near_corner" if args.planes or args.lines or args.replay else "wall"
     if args.replay:
         # a sequence long enough that no stream wraps around
         seq = SyntheticSequence(n_frames=max(30, n + args.replay), cam=cfg.camera, view=view)
@@ -94,7 +98,7 @@ def main() -> int:
     else:
         seq = SyntheticSequence(n_frames=n, cam=cfg.camera, view=view)
         frames = [seq.frame(i) for i in range(n)]
-        system = System(cfg, enable_planes=args.planes)
+        system = System(cfg, enable_planes=args.planes, enable_lines=args.lines)
 
         def run(i):
             ts, gray, depth = frames[i]
