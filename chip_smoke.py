@@ -26,6 +26,11 @@ Phases, each printing one line with its elapsed seconds:
              launches, with the bound recomputed for the B frames; and the
              batched pyramid and features against single-frame extraction
              (reported).
+Every System phase runs the mapping back end and the relocalizer on each
+keyframe (synchronously, inside track) and prints, besides its median
+ms per frame, the largest and the back end's host ms per keyframe event
+and stage.
+
 3. track   - the points-only System over 30 synthetic 640x480 frames at the
              TUM1 camera (the orbit view), with every kernel's launch
              count set to 0 first: all frames tracked, ATE against the
@@ -74,6 +79,47 @@ Phases, each printing one line with its elapsed seconds:
              aggregate frames/s at B = 8 and B = 1 (the same entry point),
              the peak memory, each stream's manhattan_found and
              use_manhattan and its associated lines per step.
+7. mapping - System(TUM1, enable_planes=True, enable_lines=True) over 120
+             frames of the 640x480 "walk" view (a sweep along the room's
+             walls at 2 cm a frame, about one keyframe per 20-30 frames:
+             bench.py's mapping regime, surfels off, one frame per step),
+             the launch
+             counts set to 0 first: ATE below 0.05 m, no reset, every lost
+             frame recovered within 5 frames, >= 3 keyframes, >= 1 point
+             triangulated by the LocalMapper, every keyframe's map point
+             valid and the covisibility symmetric
+             (tests/test_local_mapping.py), each kernel launched once per
+             frame.  Prints frames tracked and relocalized, keyframes made
+             and culled, slots reused, points made from depth,
+             triangulated, fused, merged and erased, map planes and lines
+             with those culled, the back end's ms per stage and event,
+             median and largest ms per frame and launches per frame.
+8. reloc   - frames 120..199 of a 200-frame walk (tracked; a walk's
+             poses scale with its length, and these go on from the
+             120-frame walk's last pose with a 0.4 degree step), then the
+             forced-loss
+             traffic of tests/test_reloc.py:71-113, the launch counts set
+             to 0 first: the map padded with 5 clones of keyframe 0, each
+             indexed by the relocalizer (the 5 that traffic adds to its
+             one-keyframe map), one lost frame, then frames 5, 4, ..., 0, which
+             the camera left ~127 degrees of turn ago (after the mapping
+             phase's 120 frames, ~78 degrees, the tracker still found
+             frame 5 itself on the card): one of them relocalized, every
+             later one tracked under the post-relocalization gate; then
+             frames 1..5 in localization mode, under that gate: tracked,
+             no keyframe added.  Each kernel launched once per frame.
+             Prints each relocalize call's ms and its path (3D-3D or EPnP)
+             and the keyframe matched.  Without the clones the word
+             index's covisibility-accumulated score ranks the walk's late,
+             mutually covisible keyframes above the start (keyframe 0
+             keeps ~130 of its 1000 points after point culling), and no
+             frame of 5..0 was relocalized in 2 of 3 runs on the card.  Two
+             changes to that
+             traffic: on the "wall" orbit the tracker itself finds frame 5
+             again, so no relocalization would run; and the lost frame is
+             black with no depth (a covered lens), because with planes and
+             lines on, the test's noise frame passed the success gate with
+             16 point inliers on the mapped walk at 192x144.
 
 Any failure raises and the script exits nonzero.  It writes only into a
 temporary directory and the kernel build directory, and starts no thread.
@@ -110,6 +156,9 @@ from manhattanslam_tpu_torch.system import System
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 30
 ATE_LIMIT = 0.05
+N_MAP = 120  # walk frames of the mapping phase
+N_WALK = 200  # the reloc phase walks on to frame N_WALK - 1 of this long a walk
+RELOC_WITHIN = 5  # frames a lost frame may take to be recovered
 ANGLE_TOL = 1e-4
 BATCH = 8  # replay streams (BASELINE config 5)
 REPLAY_STEPS = 12  # the first is not timed; frames up to REPLAY_STEPS + BATCH - 2 < N_FRAMES
@@ -466,6 +515,15 @@ def phase_kernels(cfg, dev, frames) -> dict:
     return stats
 
 
+def _check_launches(name: str, launches: dict, n: int) -> None:
+    """Each kernel launched once per frame of the n frames (so at least
+    once on the path)."""
+    for k, c in launches.items():
+        if c != n * launches_per_frame()[k]:
+            raise RuntimeError(f"{name}: kernel {k} launched {c} times in {n} frames, not "
+                               f"{launches_per_frame()[k]} per frame")
+
+
 def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str,
                 enable_lines: bool = False) -> dict:
     """System(cfg, enable_planes, enable_lines) over the frames with the
@@ -507,17 +565,14 @@ def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str,
     n = len(frames)
     med = statistics.median(ms[1:])
     log(f"{name}: {tracked}/{n} frames tracked, {system.map.n_kf} keyframes, ATE {ate:.4f} m, "
-        f"median {med:.1f} ms/frame (first frame {ms[0]:.0f} ms), launches {launches}")
+        f"median {med:.1f} ms/frame, largest {max(ms[1:]):.1f} (first frame {ms[0]:.0f} ms), "
+        f"launches {launches}")
+    log(f"{name}: {backend_report(system)}")
     if tracked != n:
         raise RuntimeError(f"{name}: only {tracked} of {n} frames tracked")
     if not ate < ATE_LIMIT:
         raise RuntimeError(f"{name}: ATE {ate} m is not below {ATE_LIMIT} m")
-    for k, c in launches.items():
-        if c <= 0:
-            raise RuntimeError(f"{name}: kernel {k} was not launched on the main path")
-        if c != n * launches_per_frame()[k]:
-            raise RuntimeError(f"{name}: kernel {k} launched {c} times in {n} frames, not "
-                               f"{launches_per_frame()[k]} per frame")
+    _check_launches(name, launches, n)
     out = {"launches": launches, "ms": med, "seconds": time.perf_counter() - t0}
     if enable_planes:
         out.update(planes_per_frame=n_planes, found=found, used=used,
@@ -530,6 +585,19 @@ def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str,
                    map_lines=int(m.ml_valid.sum()),
                    map_line_lengths=np.linalg.norm(m.ml_ep - m.ml_sp, axis=1)[m.ml_valid])
     return out
+
+
+def backend_report(system) -> str:
+    """The back end's host ms per keyframe event, in all and by stage, and
+    its counts."""
+    lm = system.local_mapper
+    n = max(lm.counts["events"], 1)
+    stages = {k: round(v * 1e3 / n, 3) for k, v in lm.perf.items()}
+    total = sum(system.kf_perf.values()) * 1e3 / n
+    return (f"back end {total:.2f} ms per keyframe event over {lm.counts['events']} events "
+            f"(LocalMapper by stage {stages}, relocalization index "
+            f"{system.kf_perf['reloc_add'] * 1e3 / n:.3f} ms); "
+            f"mapper {dict(lm.counts)}, tracker {dict(system.tracker.counts)}")
 
 
 def phase_track(cfg, seq, frames, tmp: str) -> tuple[dict, float]:
@@ -713,6 +781,143 @@ def phase_replay(cfg, dev, track_ms: float) -> dict:
     return launches
 
 
+def _map_consistent(m) -> bool:
+    """tests/test_local_mapping.py's map bar: every keyframe's map point
+    valid, the covisibility symmetric."""
+    ids = m.kf_mp_idx[: m.n_kf]
+    return bool(m.mp_valid[ids[ids >= 0]].all()) and bool((m.covis == m.covis.T).all())
+
+
+def phase_mapping(cfg, tmp: str):
+    """System(enable_planes=True, enable_lines=True) over N_MAP walk
+    frames with the mapping bars; returns the launch counts, the system
+    and the frames (the reloc phase goes on from them)."""
+    t0 = time.perf_counter()
+    seq = SyntheticSequence(n_frames=N_MAP, cam=cfg.camera, view="walk")
+    frames = [seq.frame(i) for i in range(N_MAP)]
+    system = System(cfg, enable_planes=True, enable_lines=True)  # CUDA
+    reset_launches()
+    ms, lost_runs, run = [], [], 0
+    for ts, gray, depth in frames:
+        t = time.perf_counter()
+        T = system.track(gray, depth, ts)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if T is None:
+            run += 1
+        elif run:
+            lost_runs.append(run)
+            run = 0
+    launches = read_launches()
+    traj = os.path.join(tmp, "CameraTrajectory_mapping.txt")
+    system.save_trajectory_tum(traj)
+    ts_e, pos_e, _ = traj_io.load_trajectory_tum(traj)
+    gt = seq.gt_rows()
+    ate = traj_io.ate_rmse(
+        (ts_e, pos_e), (np.array([r[0] for r in gt]), np.array([r[1] for r in gt])))
+    m, lm, tr = system.map, system.local_mapper, system.tracker
+    log(f"mapping: 640x480 walk, {len(ts_e)}/{N_MAP} frames tracked, "
+        f"{tr.counts['relocalized']} relocalized, lost runs {lost_runs + ([run] if run else [])}, "
+        f"{system.n_resets} resets, ATE {ate:.4f} m; keyframes made {tr.counts['keyframes']} "
+        f"(live {int(m.kf_valid.sum())}), culled {lm.counts['kf_culled']}, slots reused "
+        f"{tr.counts['slots_reused']}; points made from depth {tr.counts['depth_points']}, "
+        f"triangulated {lm.counts['triangulated']}, fused observations "
+        f"{lm.counts['fused']}, merged {lm.counts['merged']}, erased {lm.counts['erased']}, "
+        f"live {int(m.mp_valid.sum())}; map planes {int(m.pl_valid.sum())} "
+        f"({lm.counts['planes_culled']} culled), map lines {int(m.ml_valid.sum())} "
+        f"({lm.counts['lines_culled']} culled)")
+    log(f"mapping: {backend_report(system)}")
+    log(f"mapping: median {statistics.median(ms[1:]):.1f} ms/frame, largest {max(ms[1:]):.1f} "
+        f"(first frame {ms[0]:.0f} ms), kernel launches per frame "
+        f"{ {k: v / N_MAP for k, v in launches.items()} }")
+    if run or any(r > RELOC_WITHIN for r in lost_runs):
+        raise RuntimeError(f"mapping: a loss not recovered within {RELOC_WITHIN} frames: "
+                           f"{lost_runs}, {run} at the end")
+    if not ate < ATE_LIMIT:
+        raise RuntimeError(f"mapping: ATE {ate} m is not below {ATE_LIMIT} m")
+    if system.n_resets:
+        raise RuntimeError(f"mapping: {system.n_resets} resets")
+    if tr.counts["keyframes"] < 3 or lm.counts["triangulated"] < 1:
+        raise RuntimeError(f"mapping: {tr.counts['keyframes']} keyframes, "
+                           f"{lm.counts['triangulated']} points triangulated")
+    if not _map_consistent(m):
+        raise RuntimeError("mapping: a keyframe refers to an invalid point, or the "
+                           "covisibility is not symmetric")
+    _check_launches("mapping", launches, N_MAP)
+    log(f"phase mapping: {time.perf_counter() - t0:.1f} s")
+    return launches, system, frames
+
+
+def pad_with_clones(system, n: int) -> None:
+    """tests/test_reloc.py's padding: n clones of keyframe 0 (its pose,
+    features and map points), each indexed by the relocalizer."""
+    m = system.map
+    kf0 = {"xy_und": m.kf_xy[0], "u_right": m.kf_uright[0], "depth": m.kf_depth[0],
+           "level": m.kf_level[0], "angle": m.kf_angle[0], "desc": m.kf_desc[0],
+           "valid": m.kf_kp_valid[0]}
+    for k in range(n):
+        kf = m.add_keyframe(m.kf_pose[0], 0.01 * (k + 1), 0, kf0)
+        m.set_kf_matches(kf, m.kf_mp_idx[0])
+        system.reloc_module.add_keyframe(kf)
+
+
+def phase_reloc(cfg, system, frames) -> dict:
+    """The walk on, the forced-loss traffic on the mapping phase's frames,
+    then localization mode; returns the launch counts."""
+    t0 = time.perf_counter()
+    tr, reloc = system.tracker, system.reloc_module
+    longer = SyntheticSequence(n_frames=N_WALK, cam=cfg.camera, view="walk")
+    reset_launches()
+    for i in range(N_MAP, N_WALK):
+        ts, gray, depth = longer.frame(i)
+        if system.track(gray, depth, ts) is None:
+            raise RuntimeError("reloc: a walk frame was lost before the forced loss")
+    calls = []
+    relocalize = reloc.relocalize
+
+    def timed(feats):
+        t = time.perf_counter()
+        T = relocalize(feats)
+        calls.append((round((time.perf_counter() - t) * 1e3, 1),
+                      reloc.last_path if T is not None else None))
+        return T
+
+    reloc.relocalize = timed
+    pad_with_clones(system, 5)
+    gray, depth = frames[0][1:]
+    T = system.track(np.zeros_like(gray), np.zeros_like(depth), 100.0)
+    if T is not None or tr.state != "LOST":
+        raise RuntimeError("reloc: the black frame was tracked")
+    back = []
+    for k, i in enumerate(range(5, -1, -1)):
+        T = system.track(frames[i][1], frames[i][2], 100.1 + 0.03 * k)
+        back.append((i, T is not None, tr.frame_id == tr.last_reloc_frame_id))
+    first = [j for j, (_, ok, _) in enumerate(back) if ok]
+    log(f"reloc: frames 5..0 after the lost frame (frame, tracked, relocalized): {back}; "
+        f"relocalize calls (ms, path): {calls}; matched keyframe {reloc.last_kf}")
+    if not first or not back[first[0]][2]:
+        raise RuntimeError("reloc: no relocalization within the walk back")
+    if not all(ok for _, ok, _ in back[first[0]:]):
+        raise RuntimeError("reloc: a frame after the relocalization was lost")
+    n_kf = tr.counts["keyframes"]
+    system.activate_localization_mode()
+    n_loc = 5
+    for k, (ts, gray, depth) in enumerate(frames[1: 1 + n_loc]):
+        if system.track(gray, depth, 101.0 + 0.03 * k) is None:
+            raise RuntimeError("reloc: a frame was lost in localization mode")
+    system.deactivate_localization_mode()
+    added = tr.counts["keyframes"] - n_kf
+    launches = read_launches()
+    n = N_WALK - N_MAP + 1 + len(back) + n_loc
+    log(f"reloc: localization mode over {n_loc} frames, keyframes added {added}; launches "
+        f"{launches} in {n} frames; {backend_report(system)}")
+    if added:
+        raise RuntimeError(f"reloc: {added} keyframes added in localization mode")
+    _check_launches("reloc", launches, n)
+    log(f"phase reloc: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -729,11 +934,15 @@ def main() -> int:
         track_launches, track_ms = phase_track(cfg, seq, frames, tmp)
         corner_launches, near_launches = phase_planes(cfg, tmp)
         full_launches = phase_full(cfg, tmp)
+        mapping_launches, system, walk = phase_mapping(cfg, tmp)
+        reloc_launches = phase_reloc(cfg, system, walk)
     replay_launches = phase_replay(cfg, dev, track_ms)
     launches = {"track": track_launches, "planes_corner": corner_launches,
                 "planes_near_corner": near_launches, "full": full_launches,
+                "mapping": mapping_launches, "reloc": reloc_launches,
                 "replay": replay_launches}
-    paths = {"track": ("track", "planes_corner", "planes_near_corner", "full"),
+    paths = {"track": ("track", "planes_corner", "planes_near_corner", "full", "mapping",
+                       "reloc"),
              "replay": ("replay",)}
     rows = []
     for name, k in KERNELS.items():

@@ -1,14 +1,18 @@
 """Carry the reference package's tracker state into the port.
 
 The system has no learned weights; what a tracker carries is state: the
-map's point, line, plane and keyframe tables with the Manhattan registries, the
-per-frame device carry, and the BRIEF pattern.  These functions take that
-state as numpy arrays and dicts (as the JAX package's ``SlamMap``
-attributes, its ``FastTracker.reg2`` / ``reg3``,
-``jax.device_get(init_carry(...))`` and ``ops.orb.PATTERN`` hand it over)
-and return the port's objects, so the two trackers can start from the
-same state.  Descriptor words (uint32)
-become int32 tensors with the same bits.  Nothing here imports JAX.
+map's point, line, plane and keyframe tables with the Manhattan registries
+and the retired keyframe slots, the per-frame device carry, the BRIEF
+pattern, and the back end's state (the mapper's points on probation, the
+relocalizer's word histograms, the tracker's last relocalization and
+trajectory records).  These functions take that state as numpy arrays and
+dicts (as the JAX package's ``SlamMap`` attributes, its
+``FastTracker.reg2`` / ``reg3``, ``jax.device_get(init_carry(...))`` and
+``ops.orb.PATTERN`` hand it over) and return the port's objects, so the
+two packages can start from the same state; ``map_to_numpy`` and
+``backend_state_to_numpy`` read that state from either package's
+objects.  Descriptor words (uint32) become int32 tensors with the same
+bits.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from manhattanslam_tpu_torch.config import SlamConfig
+from manhattanslam_tpu_torch.frontend.tracking import FrameRecord
 from manhattanslam_tpu_torch.slam_map import SlamMap
 
 # SlamMap attributes carried over (the port's point, line, plane and
@@ -34,6 +39,19 @@ MAP_TABLES = (
 MAP_SCALARS = ("n_kf", "last_kf_added")
 # the Manhattan registries as the map keeps them (sorted id tuple -> kf)
 MAP_REGISTRIES = ("manhattan_pairs", "manhattan_triples")
+# retired keyframe slots awaiting reuse, and keyframes the registries pin
+MAP_LIFECYCLE = ("kf_free", "kf_not_erase")
+
+
+def map_to_numpy(slam_map) -> dict:
+    """Copies of a SlamMap's tables, scalars, registries and retired slots
+    (either package's map) in the form slam_map_from_numpy takes."""
+    out = {k: np.array(getattr(slam_map, k)) for k in MAP_TABLES}
+    out.update({k: int(getattr(slam_map, k)) for k in MAP_SCALARS})
+    out.update({k: dict(getattr(slam_map, k)) for k in MAP_REGISTRIES})
+    out["kf_free"] = [int(i) for i in slam_map.kf_free]
+    out["kf_not_erase"] = sorted(int(i) for i in slam_map.kf_not_erase)
+    return out
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -46,7 +64,9 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 def slam_map_from_numpy(cfg: SlamConfig, tables: dict) -> SlamMap:
     """A port SlamMap holding copies of the given tables (attribute name ->
-    array, plus the scalars n_kf / last_kf_added and the list kf_free)."""
+    array, plus the scalars n_kf / last_kf_added and, when given, the
+    registries, the retired slots kf_free in their reuse order and the
+    pinned keyframes kf_not_erase)."""
     m = SlamMap(cfg)
     for k in MAP_TABLES:
         src = np.asarray(tables[k])
@@ -99,3 +119,32 @@ def pattern_from_numpy(pattern, device) -> torch.Tensor:
     if p.shape != (256, 2, 2):
         raise ValueError(f"BRIEF pattern must be (256, 2, 2), got {p.shape}")
     return torch.from_numpy(p.astype(np.int32)).to(device)
+
+
+def backend_state_to_numpy(local_mapper, reloc, tracker) -> dict:
+    """The back end's state of either package: the mapper's points on
+    probation, the relocalizer's word histograms, the tracker's frame of
+    the last relocalization and its trajectory records as tuples."""
+    return {
+        "recent_points": [(int(p), int(b)) for p, b in local_mapper.recent_points],
+        "kf_bow": np.array(reloc.kf_bow),
+        "last_reloc_frame_id": int(tracker.last_reloc_frame_id),
+        "records": [(float(r.timestamp), int(r.ref_kf), np.array(r.T_cr, np.float32), bool(r.lost))
+                    for r in tracker.records],
+    }
+
+
+def load_backend_state(state: dict, local_mapper=None, reloc=None, tracker=None) -> None:
+    """Put backend_state_to_numpy's state into the port's LocalMapper,
+    Relocalizer and FastTracker (each optional)."""
+    if local_mapper is not None:
+        local_mapper.recent_points = [(int(p), int(b)) for p, b in state["recent_points"]]
+    if reloc is not None:
+        bow = np.asarray(state["kf_bow"], np.float32)
+        if bow.shape != reloc.kf_bow.shape:
+            raise ValueError(f"kf_bow: shape {bow.shape}, the config needs {reloc.kf_bow.shape}")
+        reloc.kf_bow[...] = bow
+    if tracker is not None:
+        tracker.last_reloc_frame_id = int(state["last_reloc_frame_id"])
+        tracker.records = [FrameRecord(float(t), int(kf), np.array(T, np.float32), bool(lost))
+                           for t, kf, T, lost in state["records"]]

@@ -122,14 +122,15 @@ def build_host_view(cfg: SlamConfig, slam_map, ref_kf: int = 0, reg2=None, reg3=
     }
 
 
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device`."""
     if a.dtype == np.uint32:  # descriptor words: same bits as int32
         a = a.view(np.int32)
     return torch.from_numpy(np.array(a)).to(device)  # a copy: never aliases the host view
 
 
 def upload_view(host: dict, device) -> dict:
-    return {k: _to_device(v, device) for k, v in host.items()}
+    return {k: to_device(v, device) for k, v in host.items()}
 
 
 def build_map_view(cfg: SlamConfig, slam_map, device) -> dict:
@@ -146,9 +147,9 @@ def set_ref_kf(view: dict, slam_map, ref_kf: int) -> dict:
     m = slam_map
     dev = view["mp_pos"].device
     view = dict(view)
-    view["ref_desc"] = _to_device(m.kf_desc[ref_kf], dev)
-    view["ref_angle"] = _to_device(m.kf_angle[ref_kf], dev)
-    view["ref_mp"] = _to_device(m.kf_mp_idx[ref_kf], dev)
+    view["ref_desc"] = to_device(m.kf_desc[ref_kf], dev)
+    view["ref_angle"] = to_device(m.kf_angle[ref_kf], dev)
+    view["ref_mp"] = to_device(m.kf_mp_idx[ref_kf], dev)
     return view
 
 
@@ -195,12 +196,12 @@ def apply_view_update(view: dict, updates: list[dict]) -> dict:
                 continue
             idx = torch.from_numpy(upd[g + "_idx"]).to(dev)
             for k in keys:
-                view[k].index_copy_(0, idx, _to_device(upd[k], dev))
+                view[k].index_copy_(0, idx, to_device(upd[k], dev))
         if len(upd["reg3_idx"]):
             view["reg3"].view(-1).index_copy_(
-                0, torch.from_numpy(upd["reg3_idx"]).to(dev), _to_device(upd["reg3_val"], dev))
+                0, torch.from_numpy(upd["reg3_idx"]).to(dev), to_device(upd["reg3_val"], dev))
         for k in _VIEW_FULL_KEYS:
-            view[k] = _to_device(upd[k], dev)
+            view[k] = to_device(upd[k], dev)
     return view
 
 

@@ -7,14 +7,21 @@ events, where the host runs the reference's keyframe policy, creates map
 points from depth and, with planes on, merges or adds the frame's planes
 and registers perpendicular pairs and triples in the Manhattan
 registries; with lines on, it refines associated map lines and adds new
-ones.  No threads: each call to ``track`` returns after its frame is
-finished.  Chunked dispatch, localization mode, relocalization and the
-mapping back end come with later slices.
+ones.  Then the keyframe goes to ``on_keyframe`` (the System's mapping
+back end and relocalization index) and the view is refreshed a second
+time, so that the back end's triangulated, fused and culled landmarks
+reach the device.  A retired keyframe re-anchors the trajectory records
+and the reference keyframe on its spanning-tree parent.  A lost frame
+goes to ``reloc_module``; in localization mode (``only_tracking``) no
+keyframe is made and a loss never asks for a reset.  No threads: each
+call to ``track`` returns after its frame is finished, back end
+included.  Chunked dispatch and the pipeline come with a later slice.
 """
 
 from __future__ import annotations
 
 import itertools
+from collections import Counter
 
 import numpy as np
 import torch
@@ -61,7 +68,20 @@ class FastTracker:
         self.n_inliers = 0
         self.n_map_inliers = 0
         self.records: list[FrameRecord] = []
+        self.max_frames = int(cfg.camera.fps)
         self.min_frames = int(cfg.min_kf_frames)
+        self.last_reloc_frame_id = -(10**9)
+        self.only_tracking = False  # localization mode
+        self._vo_flag = False  # the carry's vo_points as last set by the mode
+        self.n_ok_frames = 0
+        # keyframes made, of them in reused slots, points made from depth,
+        # frames relocalized
+        self.counts = Counter()
+        self.prev_ref_kf = 0  # the reference keyframe before the last keyframe
+        # hooks: System sets these (the back end and relocalization)
+        self.on_keyframe = None
+        self.reloc_module = None
+        slam_map.kf_retire_callbacks.append(self._on_kf_retired)
         self._ref_matches = None  # cache; None = recompute (map/ref-KF changed)
         self._ref_total = 0
         self.n_manhattan_frames = 0  # frames the Manhattan pose carried
@@ -71,6 +91,11 @@ class FastTracker:
     def track(self, timestamp: float, gray: np.ndarray, depth: np.ndarray):
         """Track one frame; returns Tcw (4,4) or None when lost."""
         self.frame_id += 1
+        if self.only_tracking != self._vo_flag:
+            # the mode changed: the temporal VO bank follows it
+            # (UpdateLastFrame, Tracking.cc:1052)
+            self.carry["vo_points"] = torch.tensor(self.only_tracking, device=self.device)
+            self._vo_flag = self.only_tracking
         g8, d16 = dt.to_native(gray, depth)
         g8_t = torch.from_numpy(g8).to(self.device)
         d16_t = torch.from_numpy(d16.astype(np.int32)).to(self.device)
@@ -85,16 +110,26 @@ class FastTracker:
     def _finish_frame(self, timestamp: float, result: dict) -> np.ndarray | None:
         s = dt.pull_summary(result)
         ok = bool(s["tracked_ok"])
+        # within one fps window of a relocalization the reference asks for
+        # >= 20 inliers (Tracking.cc:1423-1425)
+        if ok and self.frame_id < self.last_reloc_frame_id + self.max_frames:
+            ok = int(s["n_inliers"]) >= 20
         self.frame_log.append(
             (self.frame_id, int(s["n_inliers"]), ok,
              self._ref_matches if self._ref_matches is not None else -1,
              self._ref_total)
         )
+        if not ok and self._relocalize(result):
+            # the failed step's pose and matches are not used: the pose
+            # and the carry come from the relocalization
+            self.state = OK
+            self._record(timestamp, lost=False)
+            return self.T_cw.copy()
         if not ok:
             self.state = LOST
             # barely-started map: request a full system reset
             # (Tracking.cc:517-523)
-            if self.map.n_kf <= 5:
+            if not self.only_tracking and self.map.n_kf <= 5:
                 self.request_reset = True
             self._record(timestamp, lost=True)
             return None
@@ -103,6 +138,7 @@ class FastTracker:
         self.T_cw = s["T"].astype(np.float32)
         self.n_inliers = int(s["n_inliers"])
         self.n_map_inliers = int(s["n_map_inliers"])
+        self.n_ok_frames += 1
         if bool(s.get("use_manhattan", False)):
             self.n_manhattan_frames += 1
         # landmark statistics (MapPoint::IncreaseVisible / IncreaseFound)
@@ -116,7 +152,7 @@ class FastTracker:
             m.ml_visible[s["ml_visible"] & m.ml_valid] += 1
             matched_ml = s["line_assoc"][s["line_assoc"] >= 0]
             np.add.at(m.ml_found, matched_ml[m.ml_valid[matched_ml]], 1)
-        if self._need_new_keyframe(s, self.frame_id):
+        if not self.only_tracking and self._need_new_keyframe(s, self.frame_id):
             self._create_keyframe(timestamp, result, s, self.frame_id)
         self._record(timestamp, lost=False)
         return self.T_cw.copy()
@@ -135,6 +171,10 @@ class FastTracker:
         if free_kf <= 1:
             return False
         n_kfs = m.n_kf - len(m.kf_free)  # live keyframes
+        # no keyframe right after a relocalization once the map is mature
+        # (Tracking.cc:1443-1444)
+        if frame_id < self.last_reloc_frame_id + self.max_frames and n_kfs > self.max_frames:
+            return False
         since_kf = frame_id - self.last_kf_frame_id
         # a frame plane with no map association, seen on >= 2 consecutive
         # frames (Tracking.cc:1494; a one-frame flicker mints nothing)
@@ -170,20 +210,28 @@ class FastTracker:
     def _create_keyframe(self, timestamp, result, s, frame_id) -> None:
         m = self.map
         feats_np = dt.pull_feats(result)
+        self.counts["slots_reused"] += bool(m.kf_free)
         kf_id = m.add_keyframe(self.T_cw, timestamp, frame_id, feats_np)
+        self.counts["keyframes"] += 1
         # new map points from depth (close-first, cap 100)
         mp_idx = self._create_points_from_depth(feats_np, kf_id, s["kp_mp"])
+        self.counts["depth_points"] += int(((mp_idx >= 0) & (s["kp_mp"] < 0)).sum())
         m.set_kf_matches(kf_id, mp_idx)
         if self.enable_planes:
             self._kf_planes(kf_id, dt.pull_planes(result), s["plane_assoc"])
         if self.enable_lines:
             self._kf_lines(kf_id, dt.pull_lines(result))
+        self.prev_ref_kf = self.ref_kf
         self.ref_kf = kf_id
         self.last_kf_frame_id = frame_id
         self._ref_matches = None
         # the new keyframe's points enter the device view now, so the next
         # frame tracks against them
         self.refresh_view()
+        if self.on_keyframe is not None:
+            self.on_keyframe(kf_id)
+            # the back end's triangulated, fused and culled landmarks
+            self.refresh_view()
 
     def _create_points_from_depth(self, feats_np, kf_id, existing, max_new=100):
         """All close points + nearest far points up to max_new total
@@ -324,6 +372,7 @@ class FastTracker:
             feats_np, kf_id, np.full(self.cfg.caps.max_keypoints, -1, np.int32),
             max_new=10**9,
         )
+        self.counts.update(keyframes=1, depth_points=int((mp_idx >= 0).sum()))
         m.set_kf_matches(kf_id, mp_idx)
         if self.enable_planes:
             P = self.cfg.caps.max_planes_frame
@@ -333,6 +382,8 @@ class FastTracker:
         self.ref_kf = kf_id
         self.last_kf_frame_id = self.frame_id
         self.state = OK
+        if self.on_keyframe is not None:
+            self.on_keyframe(kf_id)
         self.refresh_view()
 
     def refresh_view(self) -> None:
@@ -344,7 +395,53 @@ class FastTracker:
             self.view = dt.apply_view_update(self.view, dt.diff_host_views(self._shadow, host))
         self._shadow = host
 
+    # --------------------------------------------------------------- reloc
+    def _relocalize(self, result: dict) -> bool:
+        """Relocalize the lost frame from its features: on success the pose,
+        a fresh carry from it, and the reference keyframe moved to the
+        keyframe that matched."""
+        if self.reloc_module is None:
+            return False
+        T = self.reloc_module.relocalize(result["feats"])
+        if T is None:
+            return False
+        self.T_cw = T.astype(np.float32)
+        self.carry = dt.init_carry(self.cfg, self.device, self.T_cw, vo_points=True)
+        self.n_inliers = 50
+        self.last_reloc_frame_id = self.frame_id
+        self._ref_matches = None
+        self.counts["relocalized"] += 1
+        kf = self.reloc_module.last_kf
+        if kf >= 0 and self.map.kf_valid[kf]:
+            self._set_ref_kf(int(kf))
+        return True
+
+    def _set_ref_kf(self, kf: int) -> None:
+        """Make kf the reference keyframe, in the view and its shadow."""
+        m = self.map
+        self.ref_kf = kf
+        if self.view is not None:
+            self.view = dt.set_ref_kf(self.view, m, kf)
+            self._shadow["ref_desc"] = m.kf_desc[kf].copy()
+            self._shadow["ref_angle"] = m.kf_angle[kf].copy()
+            self._shadow["ref_mp"] = m.kf_mp_idx[kf].copy()
+
     # ---------------------------------------------------------- export etc.
+    def _on_kf_retired(self, kf: int, parent: int) -> None:
+        """Re-anchor the records of a retired keyframe on its spanning-tree
+        parent, T_cr' = T_cr T_kf inv(T_parent) (the eager form of the
+        reference's replay chain, System.cc:221-224), and the reference
+        keyframe with them; the slot can then be reused."""
+        m = self.map
+        self._ref_matches = None
+        M = (m.kf_pose[kf] @ np.linalg.inv(m.kf_pose[parent])).astype(np.float32)
+        for r in self.records:
+            if r.ref_kf == kf:
+                r.T_cr = r.T_cr @ M
+                r.ref_kf = parent
+        if self.ref_kf == kf:
+            self._set_ref_kf(parent)
+
     def _record(self, timestamp: float, lost: bool) -> None:
         T_ref = self.map.kf_pose[self.ref_kf]
         if lost:

@@ -7,7 +7,7 @@ tracking-relevant rows (frontend/device_tracker.py).  Descriptors are
 kept as uint32 words here and cross to the device as int32 with the same
 bits.  The Manhattan registries map unordered plane-id pairs and triples
 to the keyframe that first saw them mutually perpendicular (Map.cc:247-285).
-Keyframe retirement comes with the mapping back end.
+A culled keyframe retires its slot for reuse (KeyFrame::SetBadFlag).
 """
 
 from __future__ import annotations
@@ -86,6 +86,9 @@ class SlamMap:
         self.n_kf = 0  # high-water mark of allocated keyframe slots
         self.kf_free: list[int] = []  # retired slots available for reuse
         self.last_kf_added = -1  # spanning-tree parent for the next KF
+        # observers told (kf, parent) before a keyframe slot is retired:
+        # the tracker re-anchors its trajectory records
+        self.kf_retire_callbacks: list = []
 
         # Manhattan registries: sorted plane-id tuple -> kf id
         self.manhattan_pairs: dict[tuple, int] = {}
@@ -125,6 +128,13 @@ class SlamMap:
         self.mp_found[idx] = 1
         self.mp_first_kf[idx] = kf_id
         return idx
+
+    def erase_points(self, idx: np.ndarray) -> None:
+        """Invalidate map points and drop every keyframe's reference to them."""
+        self.mp_valid[idx] = False
+        if self.n_kf:
+            mask = np.isin(self.kf_mp_idx[: self.n_kf], idx)
+            self.kf_mp_idx[: self.n_kf][mask] = -1
 
     # ---------------------------------------------------------------- lines
     def observe_line(self, j: int, sp_w: np.ndarray, ep_w: np.ndarray, desc: np.ndarray) -> None:
@@ -233,6 +243,30 @@ class SlamMap:
         self.last_kf_added = i
         return i
 
+    def retire_keyframe(self, kf: int) -> None:
+        """KeyFrame::SetBadFlag: the observers re-anchor onto the spanning-tree
+        parent, the keyframe's observations and covisibility clear, its
+        children reattach to the parent and the slot becomes reusable.  The
+        root (no parent) is never retired, as the reference never retires
+        keyframe 0."""
+        parent = int(self.kf_parent[kf])
+        if parent < 0:
+            return
+        for cb in self.kf_retire_callbacks:
+            cb(kf, parent)
+        self.kf_valid[kf] = False
+        self.kf_mp_idx[kf] = -1
+        self.kf_ml_idx[kf] = -1
+        self.kf_pl_idx[kf] = -1
+        self.kf_plane_coeffs[kf] = 0
+        self.kf_plane_npts[kf] = 0
+        self.covis[kf, :] = 0
+        self.covis[:, kf] = 0
+        self.kf_parent[self.kf_parent == kf] = parent
+        if self.last_kf_added == kf:
+            self.last_kf_added = parent
+        self.kf_free.append(kf)
+
     def set_kf_matches(self, kf_id: int, mp_idx: np.ndarray) -> None:
         """Record kp -> map-point association and refresh covisibility."""
         self.kf_mp_idx[kf_id] = mp_idx
@@ -252,6 +286,15 @@ class SlamMap:
         w[kf_id] = 0
         self.covis[kf_id, : self.n_kf] = w
         self.covis[: self.n_kf, kf_id] = w
+
+    def covisible_kfs(self, kf_id: int, min_weight: int = 15) -> np.ndarray:
+        """Live keyframes sharing >= min_weight points with kf_id, by
+        decreasing weight (numpy's argsort, whose tie order the reference
+        shares)."""
+        w = self.covis[kf_id, : self.n_kf].copy()
+        w[~self.kf_valid[: self.n_kf]] = 0
+        order = np.argsort(-w)
+        return order[w[order] >= min_weight]
 
     # --------------------------------------------------- Manhattan registry
     @staticmethod

@@ -1,15 +1,18 @@
-"""System facade (counterpart of manhattanslam_tpu/system.py), for the
-fused tracker with points and, on request, planes, Manhattan frames and
-lines.
+"""System facade (counterpart of manhattanslam_tpu/system.py): the
+reference's ``System(fast=True, enable_surfels=False)`` at one frame per
+step, with no pipeline.
 
 Construct from a settings file or a SlamConfig, feed RGB-D frames through
-``track``, save TUM trajectories.  The port runs ``fast=True`` with one
-frame per step and no pipeline; ``enable_planes=True`` adds plane
-extraction, plane residuals and the Manhattan decoupled pose,
-``enable_lines=True`` line detection, association, line residuals and the
-map lines; with both the step is the reference's full body.  Surfels, the
-mapping back end and relocalization are not ported yet: asking for
-surfels, chunks, the pipeline or the modular tracker raises
+``track``, toggle localization mode, save TUM trajectories.  The fused
+tracker runs points and, on request, planes (plane extraction and
+residuals, the Manhattan decoupled pose) and lines (detection,
+association, residuals, map lines); with both the step is the
+reference's full body.  Whatever the flags, every keyframe goes through
+the mapping back end (``LocalMapper``: point culling, triangulation,
+fusion, keyframe, plane and line culling) and into the relocalization
+index (``Relocalizer``), which recovers lost frames; all of it runs
+synchronously inside ``track``.  Surfels, chunks, the pipeline and the
+modular tracker are not ported yet: asking for them raises
 ``NotImplementedError`` naming the slice that brings it.
 
 The system runs on CUDA unless ``device`` says otherwise; with no GPU it
@@ -18,6 +21,9 @@ raises rather than falling back to the CPU.
 
 from __future__ import annotations
 
+import time
+from collections import defaultdict
+
 import numpy as np
 
 from manhattanslam_tpu_torch import resolve_device
@@ -25,6 +31,8 @@ from manhattanslam_tpu_torch.config import SlamConfig, load_config
 from manhattanslam_tpu_torch.datasets.tum import to_gray
 from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
 from manhattanslam_tpu_torch.io import trajectory as traj_io
+from manhattanslam_tpu_torch.mapping.local_mapping import LocalMapper
+from manhattanslam_tpu_torch.reloc.relocalizer import Relocalizer
 from manhattanslam_tpu_torch.slam_map import SlamMap
 
 
@@ -56,7 +64,17 @@ class System:
         self.enable_planes = enable_planes
         self.enable_lines = enable_lines
         self.map = SlamMap(self.cfg)
-        self.tracker = FastTracker(self.cfg, self.map, self.device, enable_planes, enable_lines)
+        self.local_mapper = LocalMapper(self.cfg, self.map, self.device)
+        self.reloc_module = Relocalizer(self.cfg, self.map, self.device)
+        self.kf_perf = defaultdict(float)  # host seconds of the keyframe hooks
+        self.n_resets = 0
+        self._new_tracker()
+
+    def _new_tracker(self) -> None:
+        self.tracker = FastTracker(
+            self.cfg, self.map, self.device, self.enable_planes, self.enable_lines)
+        self.tracker.reloc_module = self.reloc_module
+        self.tracker.on_keyframe = self._on_keyframe
 
     def track(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float):
         """Process one frame.  rgb: (H,W,3) uint8 or (H,W) gray; depth:
@@ -75,11 +93,30 @@ class System:
             self.reset()
         return T
 
+    def activate_localization_mode(self) -> None:
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.tracker.only_tracking = False
+
     def reset(self) -> None:
         """System reset (Tracking::Reset, Tracking.cc:2057-2087)."""
+        self.n_resets += 1
         self.map = SlamMap(self.cfg)
-        self.tracker = FastTracker(
-            self.cfg, self.map, self.device, self.enable_planes, self.enable_lines)
+        self.reloc_module.reset(self.map)
+        self.local_mapper.map = self.map
+        self.local_mapper.recent_points.clear()
+        self._new_tracker()
+
+    def _on_keyframe(self, kf_id: int) -> None:
+        """A new keyframe: the mapping back end, then the relocalization
+        index (System._on_keyframe without the surfels)."""
+        t0 = time.perf_counter()
+        self.local_mapper.process_keyframe(kf_id)
+        t1 = time.perf_counter()
+        self.reloc_module.add_keyframe(kf_id)
+        self.kf_perf["local_mapper"] += t1 - t0
+        self.kf_perf["reloc_add"] += time.perf_counter() - t1
 
     def shutdown(self) -> None:
         """Nothing is in flight: every track() call finishes its frame."""

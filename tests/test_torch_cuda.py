@@ -509,3 +509,49 @@ def test_system_with_lines_on_cuda_matches_cpu(cuda):
     pos_gpu = np.array([r[1] for r in gpu.tracker.trajectory_rows()])
     pos_cpu = np.array([r[1] for r in cpu.tracker.trajectory_rows()])
     assert np.sqrt(((pos_gpu - pos_cpu) ** 2).sum(1).mean()) < 1e-2
+
+
+def test_corridor_full_system_holds_the_reference_bars(cuda):
+    """The corridor e2e milestone (tests/test_lowtexture_e2e.py:88-107) on
+    the card: System with planes and lines, the mapping back end and the
+    relocalizer, 30 frames of the blank-walled corridor at small_cfg size:
+    no frame lost, no reset, the trajectory covering > 90% of the frames
+    with ATE below 0.05 m, and the Manhattan translation path carrying at
+    least half of the tracked frames."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=30, cam=cfg.camera, view="corridor")
+    system = System(cfg, enable_planes=True, enable_lines=True)
+    n_lost = 0
+    for i in range(30):
+        ts, gray, depth = seq.frame(i)
+        n_lost += system.track(gray, depth, ts) is None
+    assert n_lost == 0 and system.n_resets == 0
+    est = system.tracker.trajectory_rows()
+    assert len(est) / 30 > 0.9
+    gt = seq.gt_rows()
+    ate = traj_io.ate_rmse((np.array([r[0] for r in est]), np.stack([r[1] for r in est])),
+                           (np.array([r[0] for r in gt]), np.stack([r[1] for r in gt])))
+    assert ate < 0.05
+    tr = system.tracker
+    assert tr.n_manhattan_frames / max(tr.n_ok_frames, 1) >= 0.5
+
+
+def test_system_with_back_end_on_cuda_matches_cpu(cuda):
+    """System (points only; the back end and the relocalizer on every
+    keyframe) on the card and on the CPU over 12 "walk" frames, where the
+    second keyframe's event triangulates against the first: the same
+    keyframes, the back end run on each, and the two trajectories within
+    the 1 cm RMS of test_system_on_cuda_matches_cpu."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="walk")
+    gpu, cpu = System(cfg), System(cfg, device="cpu")
+    for i in range(12):
+        ts, gray, depth = seq.frame(i)
+        a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
+        assert a is not None and b is not None, f"frame {i}"
+    assert gpu.map.n_kf == cpu.map.n_kf >= 2
+    np.testing.assert_array_equal(gpu.map.kf_frame_id, cpu.map.kf_frame_id)
+    assert gpu.local_mapper.counts["events"] == gpu.map.n_kf
+    pos_gpu = np.array([r[1] for r in gpu.tracker.trajectory_rows()])
+    pos_cpu = np.array([r[1] for r in cpu.tracker.trajectory_rows()])
+    assert np.sqrt(((pos_gpu - pos_cpu) ** 2).sum(1).mean()) < 1e-2

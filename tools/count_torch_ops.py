@@ -12,7 +12,12 @@ lines on (the full body), prints the aten operators per frame, and those
 of the line branch alone (detection, descriptors, lifting) at 192x144 and
 at 640x480 (TUM1, the half-resolution branch); then the operators of one
 evaluation of the plane rows and of one linearization of them (ops/lm.py
-``_plane_rows``) for one stream with 8 planes in each family.  On the card
+``_plane_rows``) for one stream with 8 planes in each family; then the
+mapping back end's operators per keyframe event (``System._on_keyframe``:
+the LocalMapper's stages and the relocalization index) and those of
+each ``Relocalizer.relocalize`` call, over the relocalization traffic of
+tests/test_torch_reloc.py (60 frames of the "walk" view, one noise frame,
+frames 5..0) at 192x144, points only.  On the card
 each operator that computes is about one kernel launch; launches
 themselves are counted on the card by tools/profile_torch_track.py.
 """
@@ -22,6 +27,7 @@ from __future__ import annotations
 import os
 import sys
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -101,7 +107,41 @@ def main() -> int:
     print(f"plane rows: {aten_ops(lambda: lm._plane_rows(T, prob, masks)):.0f} aten operators")
     print(f"plane rows and their Jacobian: "
           f"{aten_ops(lambda: lm._plane_rows(T, prob, masks, False)):.0f} aten operators")
+    backend_ops(cfg)
     return 0
+
+
+def backend_ops(cfg) -> None:
+    """aten operators of each keyframe event's back end and of each
+    relocalize call on the relocalization traffic."""
+    system = System(cfg, device="cpu")
+    counts = {"keyframe event": [], "relocalize": []}
+
+    def counted(name, fn):
+        def call(*args):
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                out = fn(*args)
+            counts[name].append(
+                sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")))
+            return out
+        return call
+
+    system.tracker.on_keyframe = counted("keyframe event", system.tracker.on_keyframe)
+    system.reloc_module.relocalize = counted("relocalize", system.reloc_module.relocalize)
+    seq = SyntheticSequence(n_frames=60, cam=cfg.camera, view="walk")
+    for i in range(60):
+        ts, gray, depth = seq.frame(i)
+        system.track(gray, depth, ts)
+    gen = np.random.default_rng(0)
+    system.track(gen.uniform(0, 255, gray.shape).astype(np.float32),
+                 gen.uniform(0.5, 6.0, depth.shape).astype(np.float32), 2.0)
+    for i in range(5, -1, -1):
+        ts, gray, depth = seq.frame(i)
+        system.track(gray, depth, 2.1 + 0.03 * (5 - i))
+    for name, c in counts.items():
+        print(f"{name}: aten operators per call {c}")
+    print(f"relocalized frame: {system.tracker.last_reloc_frame_id}, "
+          f"path {system.reloc_module.last_path}")
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ Usage (one CUDA card, from the repository root):
 
     python3 tools/profile_torch_track.py [--planes] [--lines] [--frames 10] [--warmup 5] [--trace PATH]
     python3 tools/profile_torch_track.py --replay 8 [--frames 10] [--warmup 2]
+    python3 tools/profile_torch_track.py --backend
 
 Tracks the synthetic 640x480 box room at the TUM1 camera with the port's
 System (points only: the orbit view), then profiles `--frames` frames with
@@ -23,6 +24,14 @@ runs the full body): B streams of the near_corner view, stream s at frame
 offset s,
 against the shared view of keyframe 0, as chip_smoke.py's replay phase.
 Every "per frame" figure is then per batched step of B frames.
+
+`--backend` profiles the mapping back end and the relocalizer instead, on
+chip_smoke.py's mapping and reloc traffic (full body: 120 frames of the
+640x480 walk, frames 120..199 of a 200-frame walk, 5 clones of keyframe
+0, a black frame, frames 5..0): for each keyframe event (``System._on_keyframe``) and each
+``Relocalizer.relocalize`` call, the kernel launches, the host-device
+synchronizations and copies, the device kernel ms and the wall ms under
+the profiler.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence  # noqa
 from manhattanslam_tpu_torch.frontend import device_tracker as dt  # noqa: E402
 from manhattanslam_tpu_torch.parallel import mesh, replay  # noqa: E402
 from manhattanslam_tpu_torch.system import System  # noqa: E402
+
+import chip_smoke  # noqa: E402
 
 
 def _device_us(evt) -> float:
@@ -69,6 +80,49 @@ def _replay_steps(cfg, seq, frames, batch: int, dev):
     return run
 
 
+def _summary(events) -> str:
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    syncs = sum(e.count for e in events if "Synchronize" in e.key)
+    copies = sum(e.count for e in events if "cudaMemcpy" in e.key)
+    dev_ms = sum(_device_us(e) for e in events) / 1e3
+    return f"{launches} launches, {syncs} syncs, {copies} copies, device {dev_ms:.3f} ms"
+
+
+def backend(cfg) -> None:
+    """Profile each keyframe event and each relocalization (--backend)."""
+    system = System(cfg, enable_planes=True, enable_lines=True)
+    rows = []
+
+    def profiled(name, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = fn(*args)
+                torch.cuda.synchronize()
+            rows.append(f"{name}: {(time.perf_counter() - t) * 1e3:.1f} ms profiled, "
+                        f"{_summary(prof.key_averages())}")
+            return out
+        return call
+
+    system.tracker.on_keyframe = profiled("keyframe event", system.tracker.on_keyframe)
+    system.reloc_module.relocalize = profiled("relocalize", system.reloc_module.relocalize)
+    walk = SyntheticSequence(n_frames=120, cam=cfg.camera, view="walk")
+    longer = SyntheticSequence(n_frames=200, cam=cfg.camera, view="walk")
+    frames = [walk.frame(i) for i in range(120)] + [longer.frame(i) for i in range(120, 200)]
+    for ts, gray, depth in frames:
+        system.track(gray, depth, ts)
+    chip_smoke.pad_with_clones(system, 5)
+    system.track(gray * 0, depth * 0, 100.0)
+    for i in range(5, -1, -1):
+        system.track(frames[i][1], frames[i][2], 100.1 + 0.03 * (5 - i))
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print("\n".join(rows))
+    print(f"relocalized frame {system.tracker.last_reloc_frame_id}, "
+          f"keyframe {system.reloc_module.last_kf}, path {system.reloc_module.last_path}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=10)
@@ -80,12 +134,17 @@ def main() -> int:
                     help="the plane and Manhattan branch on, on the near_corner view")
     ap.add_argument("--lines", action="store_true",
                     help="the line branch on, on the near_corner view")
+    ap.add_argument("--backend", action="store_true",
+                    help="profile the keyframe events and relocalizations instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_track: needs a CUDA device", file=sys.stderr)
         return 1
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(root, "configs", "TUM1.yaml"))
+    if args.backend:
+        backend(cfg)
+        return 0
     n = args.warmup + args.frames
     dev = torch.device("cuda")
     view = "near_corner" if args.planes or args.lines or args.replay else "wall"
