@@ -27,16 +27,48 @@ Phases, each printing one line with its elapsed seconds:
              batched pyramid and features against single-frame extraction
              (reported).
 Every System phase runs the mapping back end and the relocalizer on each
-keyframe (synchronously, inside track) and prints, besides its median
-ms per frame, the largest and the back end's host ms per keyframe event
-and stage.
+keyframe (inside track, on the calling thread) and prints, besides its
+median ms per frame, the largest and the back end's host ms per keyframe
+event and stage.  Every System's step runs from a CUDA graph: the first
+frame eagerly, the second captures, every later one replays; the launch
+counts go up by the captured launches on every replay.
 
-3. track   - the points-only System over 30 synthetic 640x480 frames at the
+3. chunk   - bench.py's phase 1 on the port: System(cfg, fast=True,
+             pipeline=True, chunk=16, enable_surfels=False) with bench.py's
+             cfg (640x480, fx 525, bf 40, default caps; the full body) on
+             the "corner" view, sensor-native frames: 1 + 2 x 16 warm-up
+             frames with a keyframe forced at frame 17, a flush and
+             warmup(), then 5 timed windows of 32 frames in one region.
+             Prints the median ms per frame over the windows, the frames
+             tracked (>= 90% of the timed ones, bench.py's bar), the ATE
+             (< 0.05 m), the keyframes made (at least one event besides
+             keyframe 0 and the forced one), the tracker's host ms by
+             section (summary pull, the deferred back end, and at a
+             keyframe the payload pull, bookkeeping, the two view row
+             diffs and the back end), graph replays and kernel launches
+             per frame (each kernel once per frame, counted through the
+             replays) and the step's device ms per frame (its graph
+             replayed back to back) with the busy share it gives.  The same
+             frames then run at chunk=1 without the pipeline (the graphed
+             frame step), printed beside it with the card's name and power
+             limit.  The corner traffic mints no keyframe past the forced
+             one, so the same chunk-16 pipelined System then runs the
+             mapping phase's 120-frame walk, where keyframes come from the
+             policy at chunk boundaries: every frame recorded, >= 90%
+             tracked, ATE < 0.05 m, at least one keyframe event besides
+             keyframe 0, each kernel once per frame run on the card (the
+             flushed partial chunk's padding included).  Last, the graphed
+             frame step against the eager step
+             on the same frames, carry and view, bit for bit: after the
+             capture, after a view update written in place and after a
+             carry reset in place (a relocalization's).
+
+4. track   - the points-only System over 30 synthetic 640x480 frames at the
              TUM1 camera (the orbit view), with every kernel's launch
              count set to 0 first: all frames tracked, ATE against the
              renderer's ground truth below 0.05 m, FAST, IC angle and BRIEF
              each launched once per frame.
-4. planes  - System(TUM1, enable_planes=True) over 30 frames of two
+5. planes  - System(TUM1, enable_planes=True) over 30 frames of two
              640x480 views of the box room, the launch counts set to 0
              before each: every frame tracked, ATE below 0.05 m, each
              kernel launched once per frame.  First the "corner" view (a
@@ -53,7 +85,7 @@ and stage.
              launches per frame, the planes per frame, the frames on which
              a Manhattan frame was found and used, and the map's planes,
              pairs and triples.
-5. full    - System(TUM1, enable_planes=True, enable_lines=True), the
+6. full    - System(TUM1, enable_planes=True, enable_lines=True), the
              reference's full body (BASELINE config 3's analog: points,
              planes, Manhattan frames and lines), over 30 frames of the
              640x480 near_corner view, the launch counts set to 0 first:
@@ -65,7 +97,7 @@ and stage.
              the launches per frame, the lines per frame (valid and lifted
              to 3D), the associated lines per frame, the map lines and the
              Manhattan counts.
-6. replay  - the batched multi-sequence replay (BASELINE config 5) through
+7. replay  - the batched multi-sequence replay (BASELINE config 5) through
              parallel/mesh.py, which runs the full body: B = 8 streams
              of the 640x480 near_corner view, stream s at frame offset s,
              against the one shared map view of keyframe 0 (with its map
@@ -79,7 +111,7 @@ and stage.
              aggregate frames/s at B = 8 and B = 1 (the same entry point),
              the peak memory, each stream's manhattan_found and
              use_manhattan and its associated lines per step.
-7. mapping - System(TUM1, enable_planes=True, enable_lines=True) over 120
+8. mapping - System(TUM1, enable_planes=True, enable_lines=True) over 120
              frames of the 640x480 "walk" view (a sweep along the room's
              walls at 2 cm a frame, about one keyframe per 20-30 frames:
              bench.py's mapping regime, surfels off, one frame per step),
@@ -94,7 +126,7 @@ and stage.
              triangulated, fused, merged and erased, map planes and lines
              with those culled, the back end's ms per stage and event,
              median and largest ms per frame and launches per frame.
-8. reloc   - frames 120..199 of a 200-frame walk (tracked; a walk's
+9. reloc   - frames 120..199 of a 200-frame walk (tracked; a walk's
              poses scale with its length, and these go on from the
              120-frame walk's last pose with a 0.4 degree step), then the
              forced-loss
@@ -119,7 +151,11 @@ and stage.
              again, so no relocalization would run; and the lost frame is
              black with no depth (a covered lens), because with planes and
              lines on, the test's noise frame passed the success gate with
-             16 point inliers on the mapped walk at 192x144.
+             16 point inliers on the mapped walk at 192x144.  Last, a
+             keyframe slot retired (by the back end, or a clone retired
+             here) is reused by a forced keyframe: the view written in
+             place equals a full upload of the map, and the graphed step
+             tracks the next frame against it.
 
 Any failure raises and the script exits nonzero.  It writes only into a
 temporary directory and the kernel build directory, and starts no thread.
@@ -141,10 +177,11 @@ import time
 import numpy as np
 import torch
 
-from manhattanslam_tpu_torch.config import load_config
+from manhattanslam_tpu_torch.config import CameraConfig, SlamConfig, load_config
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
+from manhattanslam_tpu_torch.frontend.graphed_step import GraphedStep, clone_tree
 from manhattanslam_tpu_torch.io import trajectory as traj_io
 from manhattanslam_tpu_torch.ops import fast as fast_ops
 from manhattanslam_tpu_torch.ops import image as image_ops
@@ -164,6 +201,11 @@ BATCH = 8  # replay streams (BASELINE config 5)
 REPLAY_STEPS = 12  # the first is not timed; frames up to REPLAY_STEPS + BATCH - 2 < N_FRAMES
 POSE_TOL_M = 1e-3  # replay stream vs the single-stream step, per step
 POSE_TOL_RAD = 1e-3
+BENCH_CHUNK = 16  # bench.py phase 1: System(cfg, fast=True, pipeline=True, chunk=16, ...)
+CHUNK_WARM = 1 + 2 * BENCH_CHUNK  # bench.py's warm-up frames, a keyframe forced at 1 + chunk
+CHUNK_WINDOWS = 5  # timed windows (bench.py: median of 5)
+CHUNK_WINDOW = 2 * BENCH_CHUNK  # frames per timed window
+TRACKED_SHARE = 0.9  # bench.py's own bar on the timed frames
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # float ops per interior pixel of the FAST score as csrc/fast.cu does it:
@@ -181,22 +223,22 @@ BLUR_OPS_PER_PIXEL = 2 * (7 + 6)
 # One row per TPU kernel (each function that reaches pl.pallas_call).  A
 # single kernel and its batched twin are served by one CUDA kernel, one
 # launch for all pyramid levels and streams; the single rows count
-# launches on the track phase's path (and list the planes phase's two runs
-# and the full phase's beside them), the batched rows on the replay's.
+# launches on the chunk phase's path, bench.py's phase 1 (and list every
+# other System phase beside it), the batched rows on the replay's.
 _FAST = "manhattanslam_tpu_torch/csrc/fast.cu"
 _IC = "manhattanslam_tpu_torch/csrc/ic_angle.cu"
 _BRIEF = "manhattanslam_tpu_torch/csrc/brief.cu"
 KERNELS = {
     "fast_score": dict(
-        source=_FAST, path="track", wrapper=fast_ops.fast_score_levels,
+        source=_FAST, path="chunk", wrapper=fast_ops.fast_score_levels,
         replaces="manhattanslam_tpu/ops/fast_pallas.py:33 (_fast_kernel, pallas_call :79)",
     ),
     "ic_angle": dict(
-        source=_IC, path="track", wrapper=orb_ops.ic_angle_levels,
+        source=_IC, path="chunk", wrapper=orb_ops.ic_angle_levels,
         replaces="manhattanslam_tpu/ops/orb_pallas.py:235 (_make_moments_kernel, pallas_call :285)",
     ),
     "brief": dict(
-        source=_BRIEF, path="track", wrapper=orb_ops.brief_levels,
+        source=_BRIEF, path="chunk", wrapper=orb_ops.brief_levels,
         replaces="manhattanslam_tpu/ops/orb_pallas.py:66 (_make_brief_kernel, pallas_call :117)",
     ),
     "fast_score_batched": dict(
@@ -861,6 +903,33 @@ def pad_with_clones(system, n: int) -> None:
         system.reloc_module.add_keyframe(kf)
 
 
+def _reuse_slot(system, frames) -> str:
+    """A retired keyframe's slot reused by a new keyframe (a clone is
+    retired first if the back end retired none): the view written in
+    place must then equal a full upload of the map, and the graphed step
+    must track the next frame against it."""
+    tr, m = system.tracker, system.map
+    if not m.kf_free:
+        clone = max(k for k in range(m.n_kf) if m.kf_valid[k] and k != tr.ref_kf)
+        m.retire_keyframe(clone)
+    slot = m.kf_free[0]
+    reused = tr.counts["slots_reused"]
+    tr.force_keyframe = True
+    if system.track(frames[6][1], frames[6][2], 102.0) is None:
+        raise RuntimeError("reloc: the frame made a keyframe in a reused slot was lost")
+    if tr.counts["slots_reused"] != reused + 1 or not m.kf_valid[slot] or tr.ref_kf != slot:
+        raise RuntimeError(f"reloc: keyframe slot {slot} was not reused")
+    host = dt.build_host_view(tr.cfg, m, tr.ref_kf, tr.reg2, tr.reg3)
+    full = dt.upload_view(host, tr.device)
+    bad = [k for k in full if not torch.equal(tr.view[k], full[k])]
+    if bad:
+        raise RuntimeError(f"reloc: after the slot reuse the view differs from a full upload: {bad}")
+    if system.track(frames[7][1], frames[7][2], 102.03) is None:
+        raise RuntimeError("reloc: the frame after the slot reuse was lost")
+    return (f"keyframe slot {slot} retired and reused by a new keyframe; the view equals a full "
+            f"upload of the map, and the graphed step tracked the next frame against it")
+
+
 def phase_reloc(cfg, system, frames) -> dict:
     """The walk on, the forced-loss traffic on the mapping phase's frames,
     then localization mode; returns the launch counts."""
@@ -913,8 +982,214 @@ def phase_reloc(cfg, system, frames) -> dict:
         f"{launches} in {n} frames; {backend_report(system)}")
     if added:
         raise RuntimeError(f"reloc: {added} keyframes added in localization mode")
+    reuse = _reuse_slot(system, frames)
+    launches = read_launches()
+    n += 2
+    log(f"reloc: {reuse}")
     _check_launches("reloc", launches, n)
     log(f"phase reloc: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def bench_cfg() -> SlamConfig:
+    """bench.py's configuration (bench.py:136-143): 640x480, fx 525, bf
+    40, the default ORB settings and capacities."""
+    return SlamConfig(camera=CameraConfig(
+        fx=525.0, fy=525.0, cx=319.5, cy=239.5, k1=0, k2=0, p1=0, p2=0, k3=0,
+        width=640, height=480, bf=40.0))
+
+
+def _chunk_run(cfg, seq, frames, tmp: str, chunk: int, pipeline: bool, name: str) -> dict:
+    """bench.py phase 1's procedure on the port: System(cfg, fast=True,
+    pipeline, chunk, enable_surfels=False) over CHUNK_WARM frames with a
+    keyframe forced at frame 1 + BENCH_CHUNK, a flush and warmup(), then
+    CHUNK_WINDOWS timed windows of CHUNK_WINDOW frames in one continuous
+    region (the final flush's drain in the last window).  The launch
+    counts and graph replays are set to 0 before the System is made."""
+    t0 = time.perf_counter()
+    reset_launches()
+    replays0 = GraphedStep.replays
+    system = System(cfg, fast=True, pipeline=pipeline, chunk=chunk, enable_surfels=False)
+    tr = system.tracker
+    for i in range(CHUNK_WARM):
+        if i == 1 + BENCH_CHUNK:
+            tr.force_keyframe = True
+        system.track(frames[i][1], frames[i][2], frames[i][0])
+    tr.flush()
+    system.warmup()
+    torch.cuda.synchronize()
+    n0 = sum(not r.lost for r in tr.records)
+    kf0 = tr.counts["keyframes"]
+    tr.perf.clear()
+    tr.perf_n.clear()
+    marks = [time.perf_counter()]
+    for w in range(CHUNK_WINDOWS):
+        lo = CHUNK_WARM + w * CHUNK_WINDOW
+        for ts, g8, d16 in frames[lo: lo + CHUNK_WINDOW]:
+            system.track(g8, d16, ts)
+        marks.append(time.perf_counter())
+    tr.flush()
+    torch.cuda.synchronize()
+    marks[-1] = time.perf_counter()
+    launches = read_launches()
+    replays = GraphedStep.replays - replays0
+    windows = [(b - a) * 1e3 / CHUNK_WINDOW for a, b in zip(marks, marks[1:])]
+    n_timed = CHUNK_WINDOWS * CHUNK_WINDOW
+    n_ok = sum(not r.lost for r in tr.records) - n0
+    # the step's device time: its graph replayed back to back between events
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(10):
+        tr.step.graph.replay()
+    b.record()
+    b.synchronize()
+    device_ms = a.elapsed_time(b) / 10
+    traj = os.path.join(tmp, f"CameraTrajectory_{name}.txt")
+    system.save_trajectory_tum(traj)
+    ts_e, pos_e, _ = traj_io.load_trajectory_tum(traj)
+    gt = seq.gt_rows()
+    ate = traj_io.ate_rmse(
+        (ts_e, pos_e), (np.array([r[0] for r in gt]), np.array([r[1] for r in gt])))
+    perf = {k: [round(v * 1e3, 1), tr.perf_n[k]] for k, v in sorted(tr.perf.items())}
+    med = statistics.median(windows)
+    return {"system": system, "windows": windows, "ms": med, "n_ok": n_ok, "n_timed": n_timed,
+            "ate": ate, "keyframes": tr.counts["keyframes"], "kf_timed": tr.counts["keyframes"] - kf0,
+            "perf": perf, "launches": launches, "replays": replays, "device_ms": device_ms,
+            "busy": device_ms / med, "seconds": time.perf_counter() - t0}
+
+
+def _graph_equals_eager(cfg, frames) -> str:
+    """The graphed frame step against the eager step on the same frames,
+    carry and view, bit for bit: after the capture, after a view update
+    written in place, and after a carry reset in place (a
+    relocalization's)."""
+    dev = torch.device("cuda")
+    system = System(cfg)  # chunk 1: the graph is captured on the second frame
+    tr = system.tracker
+    for ts, g8, d16 in frames[:3]:
+        system.track(g8, d16, ts)
+    eager = dt.build_frame_step(cfg, dev, True, True)
+    checked = []
+
+    def compare(i: int, what: str) -> None:
+        carry = clone_tree(tr.carry)
+        g8 = torch.from_numpy(frames[i][1]).to(dev)
+        d16 = torch.from_numpy(frames[i][2].astype(np.int32)).to(dev)
+        res_e, carry_e = eager(g8, d16, carry, tr.view)
+        res_g, carry_g = tr.step(g8, d16, carry, tr.view)
+        torch.cuda.synchronize()
+        bad = [k for k in ("summary_flat", "payload_flat") if not torch.equal(res_e[k], res_g[k])]
+        bad += [f"feats.{k}" for k in res_e["feats"]
+                if not torch.equal(res_e["feats"][k], res_g["feats"][k])]
+        bad += [f"carry.{k}" for k in carry_e if not torch.equal(carry_e[k], carry_g[k])]
+        if bad:
+            raise RuntimeError(f"graph: the graphed step differs from the eager step {what}: {bad}")
+        checked.append(what)
+
+    compare(3, "after the capture")
+    m = tr.map
+    rng = np.random.default_rng(0)
+    n = 64
+    m.add_points(rng.uniform(-1, 1, (n, 3)).astype(np.float32) + np.float32([0, 0, 4]),
+                 rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32),
+                 np.tile(np.float32([0, 0, -1]), (n, 1)), np.zeros(n, np.float32),
+                 np.full(n, 20.0, np.float32), np.zeros(n, np.int32), 0)
+    ptrs = [v.data_ptr() for v in tr.view.values()]
+    tr.refresh_view()
+    if [v.data_ptr() for v in tr.view.values()] != ptrs:
+        raise RuntimeError("graph: the view update replaced a view tensor")
+    compare(4, "after a view update")
+    dt.reset_carry_(tr.carry, cfg, tr.T_cw, vo_points=True)
+    compare(5, "after a carry reset")
+    return ", ".join(checked)
+
+
+def phase_chunk(tmp: str, smi: str) -> tuple[dict, dict, dict]:
+    """bench.py phase 1 on the port at full width, beside chunk 1 without
+    the pipeline on the same frames; the same System on the walk, where
+    keyframes come at chunk boundaries; then the graphed step against the
+    eager step.  Returns the launch counts of the three runs."""
+    t0 = time.perf_counter()
+    cfg = bench_cfg()
+    n = CHUNK_WARM + CHUNK_WINDOWS * CHUNK_WINDOW
+    seq = SyntheticSequence(n_frames=n, cam=cfg.camera, view="corner")
+    # sensor-native frames, as bench.py feeds them (u8 gray, u16 depth)
+    frames = []
+    for i in range(n):
+        ts, gray, depth = seq.frame(i)
+        frames.append((ts, *dt.to_native(gray, depth)))
+    runs = {}
+    for name, chunk, pipeline in (("chunk", BENCH_CHUNK, True), ("chunk1", 1, False)):
+        run = runs[name] = _chunk_run(cfg, seq, frames, tmp, chunk, pipeline, name)
+        tr = run["system"].tracker
+        log(f"{name}: System(cfg, fast=True, pipeline={pipeline}, chunk={chunk}, "
+            f"enable_surfels=False), bench.py's 640x480 corner, full body, on {smi}: median "
+            f"{run['ms']:.2f} ms per frame over {CHUNK_WINDOWS} windows of {CHUNK_WINDOW} "
+            f"frames {[round(w, 2) for w in run['windows']]}; {run['n_ok']}/{run['n_timed']} timed "
+            f"frames tracked, ATE {run['ate']:.4f} m over {n} frames, keyframes made "
+            f"{run['keyframes']} ({run['kf_timed']} in the timed region, one forced in the "
+            f"warm-up), relocalized {tr.counts['relocalized']}")
+        log(f"{name}: host ms [total, events] in the timed region {run['perf']}; "
+            f"{backend_report(run['system'])}")
+        log(f"{name}: graph replays per frame {run['replays'] / n:.4f}, kernel launches per "
+            f"frame {({k: v / n for k, v in run['launches'].items()})}; the step's graph "
+            f"replayed back to back {run['device_ms']:.3f} ms of device time per frame, busy "
+            f"share {run['busy']:.3f} of the median frame; {run['seconds']:.1f} s")
+        if run["n_ok"] < TRACKED_SHARE * run["n_timed"]:
+            raise RuntimeError(f"{name}: only {run['n_ok']} of {run['n_timed']} timed frames tracked")
+        if not run["ate"] < ATE_LIMIT:
+            raise RuntimeError(f"{name}: ATE {run['ate']} m is not below {ATE_LIMIT} m")
+        _check_launches(name, run["launches"], n)
+        run["system"] = None
+    log(f"chunk: {runs['chunk']['ms']:.2f} ms per frame at chunk {BENCH_CHUNK} with the "
+        f"pipeline, {runs['chunk1']['ms']:.2f} ms per frame at chunk 1 (graphed, no pipeline), "
+        f"same frames, same call, {smi}")
+    walk_launches = _chunk_walk(cfg, tmp)
+    log(f"graph: the graphed step equals the eager step bit for bit "
+        f"({_graph_equals_eager(cfg, frames)})")
+    log(f"phase chunk: {time.perf_counter() - t0:.1f} s")
+    return runs["chunk"]["launches"], runs["chunk1"]["launches"], walk_launches
+
+
+def _chunk_walk(cfg, tmp: str) -> dict:
+    """bench.py phase 1's System on the mapping phase's walk (N_MAP
+    frames), where the keyframe policy mints keyframes at chunk
+    boundaries (the corner traffic makes none past the forced one): every
+    frame recorded, >= 90% tracked, ATE below 0.05 m, at least one
+    keyframe event besides keyframe 0, and each kernel once per frame run
+    on the card (the partial chunk's padding included)."""
+    seq = SyntheticSequence(n_frames=N_MAP, cam=cfg.camera, view="walk")
+    reset_launches()
+    system = System(cfg, fast=True, pipeline=True, chunk=BENCH_CHUNK, enable_surfels=False)
+    tr = system.tracker
+    for i in range(N_MAP):
+        ts, gray, depth = seq.frame(i)
+        system.track(gray, depth, ts)
+    system.shutdown()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    traj = os.path.join(tmp, "CameraTrajectory_chunk_walk.txt")
+    system.save_trajectory_tum(traj)
+    ts_e, pos_e, _ = traj_io.load_trajectory_tum(traj)
+    gt = seq.gt_rows()
+    ate = traj_io.ate_rmse(
+        (ts_e, pos_e), (np.array([r[0] for r in gt]), np.array([r[1] for r in gt])))
+    kf = [int(f) for f, v in zip(system.map.kf_frame_id[: system.map.n_kf],
+                                  system.map.kf_valid[: system.map.n_kf]) if v]
+    n_ok = sum(not r.lost for r in tr.records)
+    log(f"chunk_walk: the same System on the {N_MAP}-frame walk: {len(tr.records)} frames recorded, "
+        f"{n_ok} tracked, ATE {ate:.4f} m, keyframes made {tr.counts['keyframes']} (live at "
+        f"frames {kf}), relocalized {tr.counts['relocalized']}; frames run on the card "
+        f"{tr.step.calls} (the last chunk padded); host ms [total, events] "
+        f"{ {k: [round(v * 1e3, 1), tr.perf_n[k]] for k, v in sorted(tr.perf.items())} }; "
+        f"{backend_report(system)}")
+    if len(tr.records) != N_MAP or n_ok < TRACKED_SHARE * N_MAP:
+        raise RuntimeError(f"chunk_walk: {len(tr.records)} frames recorded, {n_ok} tracked")
+    if not ate < ATE_LIMIT:
+        raise RuntimeError(f"chunk_walk: ATE {ate} m is not below {ATE_LIMIT} m")
+    if tr.counts["keyframes"] < 2:
+        raise RuntimeError("chunk_walk: no keyframe event besides keyframe 0")
+    _check_launches("chunk_walk", launches, tr.step.calls)
     return launches
 
 
@@ -926,23 +1201,25 @@ def main() -> int:
     cfg = load_config(os.path.join(HERE, "configs", "TUM1.yaml"))
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    phase_build()
+    smi = phase_build()
     seq = SyntheticSequence(n_frames=N_FRAMES, cam=cfg.camera)
     frames = [seq.frame(i) for i in range(N_FRAMES)]
     stats = phase_kernels(cfg, dev, frames)
     with tempfile.TemporaryDirectory() as tmp:
+        chunk_launches, chunk1_launches, walk_launches = phase_chunk(tmp, smi)
         track_launches, track_ms = phase_track(cfg, seq, frames, tmp)
         corner_launches, near_launches = phase_planes(cfg, tmp)
         full_launches = phase_full(cfg, tmp)
         mapping_launches, system, walk = phase_mapping(cfg, tmp)
         reloc_launches = phase_reloc(cfg, system, walk)
     replay_launches = phase_replay(cfg, dev, track_ms)
-    launches = {"track": track_launches, "planes_corner": corner_launches,
+    launches = {"chunk": chunk_launches, "chunk1": chunk1_launches, "chunk_walk": walk_launches,
+                "track": track_launches, "planes_corner": corner_launches,
                 "planes_near_corner": near_launches, "full": full_launches,
                 "mapping": mapping_launches, "reloc": reloc_launches,
                 "replay": replay_launches}
-    paths = {"track": ("track", "planes_corner", "planes_near_corner", "full", "mapping",
-                       "reloc"),
+    paths = {"chunk": ("chunk", "chunk1", "chunk_walk", "track", "planes_corner",
+                       "planes_near_corner", "full", "mapping", "reloc"),
              "replay": ("replay",)}
     rows = []
     for name, k in KERNELS.items():

@@ -29,7 +29,15 @@ snapshots.
 
 The body is written once, for B streams that share one map view
 (``build_batched_body``, the batched replay of parallel/mesh.py);
-the single-stream body is its B = 1 case.
+the single-stream body is its B = 1 case.  The frame step also packs what
+the host reads into flat float32 buffers (``add_flats``), so a frame
+costs one device-to-host copy (``pull_summary``), and
+``build_chunk_step`` runs C frames through it against one view, counting
+the landmark statistics on the device, for one copy per chunk
+(``pull_chunk_summary``); a keyframe's extras and payload are pulled
+lazily (``pull_kfx``, ``pull_payload``).  On the card the frame step runs
+from a CUDA graph (frontend/graphed_step.py), so nothing here may replace
+a tensor the graph reads: the view and the carry are written in place.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.frontend import tracking_ops
 from manhattanslam_tpu_torch.frontend.frame import build_extractor
+from manhattanslam_tpu_torch.frontend.graphed_step import copy_tree_
 from manhattanslam_tpu_torch.geometry import se3
 from manhattanslam_tpu_torch.ops import lines as line_ops
 from manhattanslam_tpu_torch.ops import lm, matching
@@ -123,10 +132,16 @@ def build_host_view(cfg: SlamConfig, slam_map, ref_kf: int = 0, reg2=None, reg3=
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
-    """A host array as a tensor on `device`."""
+    """A host array as a tensor on `device` (a copy: never aliases the
+    host array).  To CUDA it goes through pinned memory without blocking
+    the host: the copy is ordered on the current stream, after the work
+    enqueued before it."""
     if a.dtype == np.uint32:  # descriptor words: same bits as int32
         a = a.view(np.int32)
-    return torch.from_numpy(np.array(a)).to(device)  # a copy: never aliases the host view
+    t = torch.from_numpy(np.array(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def upload_view(host: dict, device) -> dict:
@@ -143,13 +158,14 @@ def build_map_view(cfg: SlamConfig, slam_map, device) -> dict:
 
 
 def set_ref_kf(view: dict, slam_map, ref_kf: int) -> dict:
-    """A view whose ref-KF banks come from keyframe `ref_kf`."""
+    """Copy keyframe `ref_kf`'s banks into the view's ref-KF banks, in
+    place (a graph that reads the view keeps reading the same tensors);
+    returns the view."""
     m = slam_map
     dev = view["mp_pos"].device
-    view = dict(view)
-    view["ref_desc"] = to_device(m.kf_desc[ref_kf], dev)
-    view["ref_angle"] = to_device(m.kf_angle[ref_kf], dev)
-    view["ref_mp"] = to_device(m.kf_mp_idx[ref_kf], dev)
+    view["ref_desc"].copy_(to_device(m.kf_desc[ref_kf], dev))
+    view["ref_angle"].copy_(to_device(m.kf_angle[ref_kf], dev))
+    view["ref_mp"].copy_(to_device(m.kf_mp_idx[ref_kf], dev))
     return view
 
 
@@ -187,21 +203,22 @@ def diff_host_views(shadow: dict, host: dict) -> list[dict]:
 
 def apply_view_update(view: dict, updates: list[dict]) -> dict:
     """Scatter the changed rows and registry entries into the device view
-    IN PLACE (the view's storage is reused, as the reference donates it)
-    and replace the full keys."""
+    and copy the full keys over, all IN PLACE (the view's storage is
+    reused, as the reference donates it, and a graph that reads the view
+    keeps reading the same tensors)."""
     for upd in updates:
         dev = view["mp_pos"].device
         for g, keys in _VIEW_GROUPS.items():
             if len(upd[g + "_idx"]) == 0:
                 continue
-            idx = torch.from_numpy(upd[g + "_idx"]).to(dev)
+            idx = to_device(upd[g + "_idx"], dev)
             for k in keys:
                 view[k].index_copy_(0, idx, to_device(upd[k], dev))
         if len(upd["reg3_idx"]):
             view["reg3"].view(-1).index_copy_(
-                0, torch.from_numpy(upd["reg3_idx"]).to(dev), to_device(upd["reg3_val"], dev))
+                0, to_device(upd["reg3_idx"], dev), to_device(upd["reg3_val"], dev))
         for k in _VIEW_FULL_KEYS:
-            view[k] = to_device(upd[k], dev)
+            view[k].copy_(to_device(upd[k], dev))
     return view
 
 
@@ -444,6 +461,14 @@ def init_carry(
         "prev_angle": torch.zeros(n_kp, **f32),
         "prev_valid": torch.zeros(n_kp, dtype=torch.bool, device=device),
     }
+
+
+def reset_carry_(carry: dict, cfg: SlamConfig, T0: np.ndarray | None = None,
+                 vo_points: bool = False) -> dict:
+    """Set `carry` to ``init_carry``'s values IN PLACE (a graph that reads
+    the carry keeps reading the same tensors); returns it."""
+    copy_tree_(carry, init_carry(cfg, carry["T_last"].device, T0, vo_points))
+    return carry
 
 
 # --------------------------------------------------------------- the step
@@ -730,13 +755,14 @@ def build_frame_body(
     """Returns body(gray (H,W) f32, depth (H,W) f32 m, carry, view) ->
     (result, new_carry), every tensor on `device`: the batched body at
     B = 1, with the stream axis added to the inputs and taken off the
-    outputs."""
+    outputs, and the host's flat buffers (``add_flats``) in the result."""
     batched = build_batched_body(cfg, device, enable_planes, enable_lines)
 
     def body(gray, depth, carry, view):
         result, new_carry = batched(
             gray[None], depth[None], {k: v[None] for k, v in carry.items()}, view
         )
+        add_flats(result, lead=1)
         return _first_stream(result), _first_stream(new_carry)
 
     return body
@@ -762,54 +788,287 @@ def build_frame_step(
     return step
 
 
-# ------------------------------------------------------------ host pulls
-SUMMARY_KEYS = (
+
+
+# ------------------------------------------------------------ frame packing
+def pack_frame(gray: np.ndarray, depth: np.ndarray) -> np.ndarray:
+    """Host side: gray (H,W) float or uint8 + depth (H,W) float32 meters
+    (or uint16 already in DEPTH_QUANT units) -> one (H, 3W) uint8 buffer
+    [gray | depth low byte | depth high byte], the reference's planar
+    upload layout."""
+    gray, d16 = to_native(gray, depth)
+    return np.concatenate(
+        [gray, (d16 & 0xFF).astype(np.uint8), (d16 >> 8).astype(np.uint8)], axis=1)
+
+
+def unpack_frame(packed: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device side inverse of ``pack_frame`` -> (gray f32, depth f32 m)."""
+    gray = packed[..., :w].to(torch.float32)
+    lo = packed[..., w: 2 * w].to(torch.float32)
+    hi = packed[..., 2 * w:].to(torch.float32)
+    return gray, (lo + 256.0 * hi) * float(np.float32(1.0 / DEPTH_QUANT))
+
+
+# ------------------------------------------------------------- flat buffers
+# What the host reads crosses to it as flat float32 buffers, one transfer
+# each (the reference's summary_flat, core_flat, kfx_flat, payload_flat).
+# CORE: every frame's scalars (chunk mode pulls these for every frame);
+# KFX: the keyframe extras, read only for a frame that becomes a keyframe;
+# the wide landmark masks ride bit-packed in the per-frame summary, or
+# are accumulated on the device over a chunk (STAT_KEYS).  Keys of a
+# branch that is off are left out.
+CORE_KEYS = (
     "T", "tracked_ok", "n_inliers", "n_map_inliers", "n_matches",
-    "tracked_close", "nontracked_close", "kp_mp", "matched", "visible",
+    "tracked_close", "nontracked_close", "manhattan_found", "use_manhattan", "new_plane",
 )
-# the branches' per-frame flags and associations, pulled as ONE int32
-# buffer (one sync): planes give manhattan_found, use_manhattan,
-# new_plane, plane_assoc (P) and plane_valid (P); lines give line_assoc
-# (L) and ml_visible (ML)
-_BRANCH_KEYS = {
-    "plane_valid": ("manhattan_found", "use_manhattan", "new_plane", "plane_assoc",
-                    "plane_valid"),
-    "line_assoc": ("line_assoc", "ml_visible"),
-}
-# keyframe payloads of the branches
-PLANE_PAYLOAD_KEYS = ("plane_coeffs", "plane_valid", "plane_support", "plane_cloud", "plane_npts")
-LINE_PAYLOAD_KEYS = ("line_sp3", "line_ep3", "line_has3d", "line_valid", "line_desc", "line_assoc")
+KFX_KEYS = ("kp_mp", "plane_assoc", "plane_valid", "line_assoc")
+STAT_KEYS = ("mp_visible", "mp_found", "ml_visible", "ml_found")
+PACKED_KEYS = ("matched", "visible", "ml_visible")
+# keyframe payloads of the branches (after the features, which go in
+# sorted-key order without the descriptors)
+PAYLOAD_KEYS = (
+    "plane_coeffs", "plane_valid", "plane_support", "plane_cloud", "plane_npts",
+    "line_sp3", "line_ep3", "line_has3d", "line_valid", "line_desc", "line_assoc",
+)
+# what a frame's output slot keeps (frame step / chunk step): the flat
+# buffers and the features (the relocalizer's input, the payload's
+# descriptors); a chunk also keeps each frame's plane membership image,
+# as the reference's does for its surfel mapper
+FRAME_KEEP = ("summary_flat", "payload_flat", "feats")
+CHUNK_KEEP = ("core_flat", "kfx_flat", "payload_flat", "plane_membership", "feats")
 
 
-def pull_summary(result: dict) -> dict:
-    """What the host state machine reads every frame, as numpy."""
-    out = {k: result[k].cpu().numpy() for k in SUMMARY_KEYS}
-    keys = [k for tag, ks in _BRANCH_KEYS.items() if tag in result for k in ks]
-    if keys:
-        parts = [result[k].to(torch.int32).reshape(-1) for k in keys]
-        flat = torch.cat(parts).cpu().numpy()
-        at = 0
-        for k, part in zip(keys, parts):
-            n = part.numel()
-            v = flat[at: at + n].reshape(result[k].shape)
-            out[k] = v > 0 if result[k].dtype == torch.bool else v
-            at += n
+def pack_bool_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(..., N) bool -> (..., N // 8) uint8, little-endian bit order."""
+    n = mask.shape[-1]
+    m = mask.reshape(mask.shape[:-1] + (n // 8, 8)).to(torch.int32)
+    shift = torch.arange(8, dtype=torch.int32, device=mask.device)
+    return (m << shift).sum(-1).to(torch.uint8)
+
+
+def _kind(t: torch.Tensor) -> str:
+    if t.dtype == torch.bool:
+        return "b"
+    return "f" if t.dtype.is_floating_point else "i"
+
+
+def flat_layouts(result: dict, lead: int = 0) -> dict[str, tuple]:
+    """The layout of each flat buffer of a step result whose tensors carry
+    `lead` leading axes: {name: ((key, shape, kind), ...)}, kind "f"
+    float, "i" integer, "b" bool, "bits" a bit-packed bool mask (shape in
+    bytes)."""
+    def lay(keys, src=None):
+        src = src if src is not None else result
+        return tuple((k, tuple(src[k].shape[lead:]), _kind(src[k])) for k in keys if k in src)
+
+    core = lay(CORE_KEYS)
+    kfx = lay(KFX_KEYS)
+    bits = tuple((k, (result[k].shape[-1] // 8,), "bits") for k in PACKED_KEYS if k in result)
+    feats = result["feats"]
+    return {
+        "core": core, "kfx": kfx, "summary": core + kfx + bits,
+        "payload": lay(sorted(k for k in feats if k != "desc"), feats) + lay(PAYLOAD_KEYS),
+    }
+
+
+def _flat(result: dict, layout: tuple, lead: int) -> torch.Tensor:
+    src = {**result["feats"], **result}  # the feature keys are not result keys
+    parts = []
+    for k, _, kind in layout:
+        t = pack_bool_bits(src[k]) if kind == "bits" else src[k]
+        parts.append(t.reshape(t.shape[:lead] + (-1,)).to(torch.float32))
+    return torch.cat(parts, -1)
+
+
+def add_flats(result: dict, lead: int = 0) -> dict:
+    """Add the host's flat float32 buffers to a step result (in place):
+    ``summary_flat`` (everything the host state machine reads every frame,
+    landmark masks bit-packed), ``core_flat`` and ``kfx_flat`` (the chunk
+    path's two tiers) and ``payload_flat`` (a keyframe's features without
+    descriptors, planes and lines).  Integers up to 2**24 are exact in
+    float32; map ids stay below that."""
+    for name, layout in flat_layouts(result, lead).items():
+        result[name + "_flat"] = _flat(result, layout, lead)
+    return result
+
+
+def unpack_flat(flat: np.ndarray, layout: tuple) -> dict:
+    """A host flat buffer (..., N) -> {key: array (..., *shape)} with the
+    layout's kinds (int32, bool, float32)."""
+    lead = flat.shape[:-1]
+    out, off = {}, 0
+    for k, shp, kind in layout:
+        n = math.prod(shp)
+        v = flat[..., off: off + n]
+        off += n
+        if kind == "bits":
+            out[k] = np.unpackbits(np.rint(v).astype(np.uint8), axis=-1, bitorder="little") > 0
+            continue
+        v = v.reshape(lead + shp)
+        out[k] = v > 0.5 if kind == "b" else (
+            np.rint(v).astype(np.int32) if kind == "i" else v.astype(np.float32))
     return out
 
 
-def pull_feats(result: dict) -> dict:
-    """The frame's features as numpy (keyframe payload); descriptors come
-    back as the reference's uint32 words."""
-    feats = {k: v.cpu().numpy() for k, v in result["feats"].items()}
-    feats["desc"] = feats["desc"].view(np.uint32)
-    return feats
+def layout_size(layout: tuple) -> int:
+    return sum(math.prod(shp) for _, shp, _ in layout)
 
 
-def pull_planes(result: dict) -> dict:
-    """The frame's planes as numpy (keyframe payload)."""
-    return {k: result[k].cpu().numpy() for k in PLANE_PAYLOAD_KEYS}
+# ------------------------------------------------------------- host copies
+class HostPull:
+    """Device -> host copies of tensors into pinned memory without
+    blocking, behind one CUDA event (on `stream`, the current one by
+    default); ``wait()`` returns them as numpy.  Tensors on the CPU are
+    copied at once."""
+
+    def __init__(self, tensors: list[torch.Tensor], stream=None):
+        self.event = None
+        if tensors[0].device.type != "cuda":
+            self.host = [t.detach().numpy().copy() for t in tensors]
+            return
+        stream = stream or torch.cuda.current_stream(tensors[0].device)
+        with torch.cuda.stream(stream):
+            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
+
+    def wait(self) -> list[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+            self.host = [h.numpy() for h in self.host]
+        return self.host
 
 
-def pull_lines(result: dict) -> dict:
-    """The frame's lines as numpy (keyframe payload)."""
-    return {k: result[k].cpu().numpy() for k in LINE_PAYLOAD_KEYS}
+def pull_summary(result: dict, layout: tuple | None = None, pulled: HostPull | None = None) -> dict:
+    """What the host state machine reads every frame, as numpy, in ONE
+    device -> host transfer of ``summary_flat`` (or from `pulled`, that
+    transfer started earlier)."""
+    layout = layout if layout is not None else flat_layouts(result)["summary"]
+    pulled = pulled if pulled is not None else HostPull([result["summary_flat"]])
+    return unpack_flat(pulled.wait()[0], layout)
+
+
+def pull_payload(result: dict, idx: int | None = None, layout: tuple | None = None,
+                 stream=None) -> dict:
+    """A keyframe's payload: one flat buffer and the descriptors, copied
+    behind one event (chunk mode: frame `idx` of the chunk).  Returns
+    {"feats": the features with uint32 descriptors, plane and line keys}."""
+    layout = layout if layout is not None else flat_layouts(result)["payload"]
+    flat, desc = result["payload_flat"], result["feats"]["desc"]
+    if idx is not None:
+        flat, desc = flat[idx], desc[idx]
+    flat, desc = HostPull([flat, desc], stream).wait()
+    out = unpack_flat(flat, layout)
+    feats = {k: out.pop(k) for k, _, _ in layout if k not in PAYLOAD_KEYS}
+    feats["desc"] = np.ascontiguousarray(desc).view(np.uint32)
+    return {"feats": feats, **out}
+
+
+def pull_kfx(kfx: np.ndarray, idx: int, layout: tuple) -> dict:
+    """Frame idx's keyframe extras from the chunk's pulled ``kfx_flat``
+    (C, N)."""
+    return unpack_flat(kfx[idx], layout)
+
+
+def parse_chunk_summary(flat: np.ndarray, n_frames: int, core_layout: tuple, n_map: int,
+                        n_ml: int) -> tuple[list[dict], dict]:
+    """A chunk's pulled ``chunk_flat`` -> (per-frame core dicts, landmark
+    counts {key: (n,) int32})."""
+    core_len = layout_size(core_layout)
+    cores_flat = flat[: n_frames * core_len].reshape(n_frames, core_len)
+    cores = [unpack_flat(row, core_layout) for row in cores_flat]
+    cnt = np.ascontiguousarray(flat[n_frames * core_len:]).view(np.uint8)
+    stats, off = {}, 0
+    for k, n in zip(STAT_KEYS, (n_map, n_map, n_ml, n_ml)):
+        stats[k] = cnt[off: off + n].astype(np.int32)
+        off += n
+    return cores, stats
+
+
+def pull_chunk_summary(results: dict, core_layout: tuple, n_map: int, n_ml: int):
+    """ONE device -> host transfer for a whole chunk (``chunk_flat``)."""
+    flat = HostPull([results["chunk_flat"]]).wait()[0]
+    return parse_chunk_summary(flat, results["core_flat"].shape[0], core_layout, n_map, n_ml)
+
+
+# --------------------------------------------------------------- the chunk
+def keep(result: dict, keys: tuple) -> dict:
+    return {k: result[k] for k in keys if k in result}
+
+
+def empty_slot(like: dict, lead: tuple = ()) -> dict:
+    """Uninitialized tensors shaped like `like`'s (nested dicts too), with
+    `lead` leading axes: a slot of an output ring."""
+    return {k: empty_slot(v, lead) if isinstance(v, dict)
+            else torch.empty(lead + tuple(v.shape), dtype=v.dtype, device=v.device)
+            for k, v in like.items()}
+
+
+def slot_row(slot: dict, i: int) -> dict:
+    return {k: slot_row(v, i) if isinstance(v, dict) else v[i] for k, v in slot.items()}
+
+
+def init_stats(cfg: SlamConfig, device, lead: tuple = ()) -> dict:
+    n_map, n_ml = cfg.caps.max_map_points, cfg.caps.max_map_lines
+    return {k: torch.zeros(lead + (n,), dtype=torch.int32, device=device)
+            for k, n in zip(STAT_KEYS, (n_map, n_map, n_ml, n_ml))}
+
+
+def accumulate_stats_(stats: dict, result: dict) -> dict:
+    """Add one frame's landmark statistics to the counts, gated on
+    ``tracked_ok`` (a lost frame updates nothing, Tracking.cc:420-423):
+    visible and found map points, visible map lines and, with duplicates
+    counted as np.add.at counts them, found map lines.  Any leading
+    stream axes; integer sums, so exact in any order."""
+    ok = result["tracked_ok"].to(torch.int32)[..., None]
+    stats["mp_visible"] += result["visible"].to(torch.int32) * ok
+    stats["mp_found"] += (result["matched"] & result["visible"]).to(torch.int32) * ok
+    if "ml_visible" in result:
+        stats["ml_visible"] += result["ml_visible"].to(torch.int32) * ok
+        la = result["line_assoc"]
+        n_ml = stats["ml_found"].shape[-1]
+        hit = la >= 0
+        found = torch.zeros(la.shape[:-1] + (n_ml + 1,), dtype=torch.int32, device=la.device)
+        found.scatter_add_(-1, torch.where(hit, la, n_ml).long(), hit.to(torch.int32) * ok)
+        stats["ml_found"] += found[..., :n_ml]
+    return stats
+
+
+def chunk_flat(core_flat: torch.Tensor, stats: dict) -> torch.Tensor:
+    """The chunk's ONE pull: every frame's core, then the landmark counts
+    clipped to uint8 and viewed as float32 (bits, not values)."""
+    cnt = torch.cat([torch.clamp(stats[k], 0, 255).to(torch.uint8) for k in STAT_KEYS], -1)
+    pad = (-cnt.shape[-1]) % 4
+    if pad:
+        cnt = torch.cat([cnt, cnt.new_zeros(cnt.shape[:-1] + (pad,))], -1)
+    return torch.cat([core_flat.reshape(-1), cnt.view(torch.float32)])
+
+
+def build_chunk_step(cfg: SlamConfig, device, enable_planes: bool = False,
+                     enable_lines: bool = False, frame_step=None):
+    """Returns chunk(gray8 (C,H,W) uint8, d16 (C,H,W) int32, carry, view,
+    out=None) -> (results, carry): the C frames through the frame step in
+    order (the reference's ``lax.scan``), against one view.  The landmark
+    statistics accumulate on the device; each frame's CHUNK_KEEP outputs
+    go into row i of `out` (an output slot with a leading chunk axis,
+    allocated on first use when None); ``results["chunk_flat"]`` is the
+    chunk's one pull.  `frame_step` is the frame step to run (a
+    ``GraphedStep`` on the card), ``build_frame_step``'s by default."""
+    step = frame_step or build_frame_step(cfg, device, enable_planes, enable_lines)
+
+    def chunk(gray8, d16, carry, view, out=None):
+        stats = init_stats(cfg, device)
+        for i in range(gray8.shape[0]):
+            result, carry = step(gray8[i], d16[i], carry, view)
+            accumulate_stats_(stats, result)
+            lite = keep(result, CHUNK_KEEP)
+            if out is None:
+                out = empty_slot(lite, (gray8.shape[0],))
+            copy_tree_(slot_row(out, i), lite)
+        out["chunk_flat"] = chunk_flat(out["core_flat"], stats)
+        return out, carry
+
+    return chunk

@@ -202,14 +202,19 @@ def _detect_lines_impl(
     owner = torch.where(prio_grid > 0, L - prio_grid, -1)
     pix_line = torch.where(edge, owner[bin_idx], -1)  # (B, HW)
 
-    # per-line weighted moments of the owned pixels (segment sums)
+    # per-line weighted moments of the owned pixels: a one-hot product per
+    # stream, as the reference's (lines.py:192-201).  A float scatter-add
+    # on the card sums in the order of its atomics, which changes from run
+    # to run (tools/probe_determinism.py found it the first op to differ);
+    # one product of the same shape per stream also keeps a stream's sums
+    # independent of how many streams share the call
     member = pix_line >= 0
     seg = torch.where(member, pix_line, L).long()
     wpix = torch.where(member, mag, torch.zeros_like(mag))
     cols = torch.stack(
         [wpix, wpix * xs, wpix * ys, wpix * xs * xs, wpix * xs * ys, wpix * ys * ys], -1)
-    sums = torch.zeros(B, L + 1, 6, device=dev).scatter_add_(
-        1, seg[..., None].expand(B, h * w, 6), cols)[:, :L]
+    line_ids = torch.arange(L, device=dev)[:, None]
+    sums = torch.stack([(seg[b] == line_ids).to(torch.float32) @ cols[b] for b in range(B)])
     wsum = torch.clamp(sums[..., 0], min=1e-6)
     mx = sums[..., 1] / wsum
     my = sums[..., 2] / wsum

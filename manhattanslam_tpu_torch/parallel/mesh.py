@@ -8,8 +8,13 @@ fused frame body, points, planes with the Manhattan pose, and lines, with
 a leading stream axis (``device_tracker.build_batched_body``), the
 counterpart of the reference's ``jax.vmap(body, in_axes=(0, 0, None))``:
 each op and each CUDA kernel launch serves all B streams, so a step
-launches as many kernels at B = 8 as at B = 1.  The reference's
-multi-device entries (``make_mesh``,
+launches as many kernels at B = 8 as at B = 1.  On the card the step is
+replayed from a CUDA graph (``frontend/graphed_step.py``): the first call
+runs eagerly, the second captures; the view passed must be the same
+tensors on every call (updated in place).  The step keeps the functional
+form of the reference's: the carry passed in is not changed, and the
+result and new carry returned are the caller's own copies.  The
+reference's multi-device entries (``make_mesh``,
 ``build_batched_track_step``, ``sharded_hamming_argmin``) are not ported
 yet.
 """
@@ -19,6 +24,7 @@ from __future__ import annotations
 from manhattanslam_tpu_torch import resolve_device
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
+from manhattanslam_tpu_torch.frontend.graphed_step import GraphedStep, clone_tree
 
 # what the step returns per stream: the reference's replay summary
 # (mesh.py:116-122), then each frame line's associated map line (-1 none)
@@ -36,6 +42,12 @@ def build_throughput_step(cfg: SlamConfig, batch: int, device=None):
     body = dt.build_batched_body(cfg, device, enable_planes=True, enable_lines=True)
     hw = (cfg.camera.height, cfg.camera.width)
 
+    def inner(gray8, d16, carry, view):
+        result, new_carry = body(*dt.frame_to_float(gray8, d16), carry, view)
+        return {k: result[k] for k in RESULT_KEYS}, new_carry
+
+    graphed = GraphedStep(inner, device)
+
     def step(gray8, d16, carry, view):
         if gray8.shape != (batch,) + hw or d16.shape != (batch,) + hw:
             raise ValueError(
@@ -44,8 +56,8 @@ def build_throughput_step(cfg: SlamConfig, batch: int, device=None):
             )
         if gray8.device.type != device.type or d16.device.type != device.type:
             raise ValueError(f"throughput step: frames must be on {device}")
-        result, new_carry = body(*dt.frame_to_float(gray8, d16), carry, view)
-        return {k: result[k] for k in RESULT_KEYS}, new_carry
+        result, new_carry = graphed(gray8, d16, carry, view)
+        return clone_tree(result), clone_tree(new_carry)
 
     return step
 

@@ -1,19 +1,22 @@
 """System facade (counterpart of manhattanslam_tpu/system.py): the
-reference's ``System(fast=True, enable_surfels=False)`` at one frame per
-step, with no pipeline.
+reference's ``System(fast=True, enable_surfels=False)``, one frame per
+step or ``chunk`` frames per dispatch, with or without the pipeline.
 
 Construct from a settings file or a SlamConfig, feed RGB-D frames through
-``track``, toggle localization mode, save TUM trajectories.  The fused
-tracker runs points and, on request, planes (plane extraction and
-residuals, the Manhattan decoupled pose) and lines (detection,
-association, residuals, map lines); with both the step is the
-reference's full body.  Whatever the flags, every keyframe goes through
-the mapping back end (``LocalMapper``: point culling, triangulation,
-fusion, keyframe, plane and line culling) and into the relocalization
-index (``Relocalizer``), which recovers lost frames; all of it runs
-synchronously inside ``track``.  Surfels, chunks, the pipeline and the
-modular tracker are not ported yet: asking for them raises
-``NotImplementedError`` naming the slice that brings it.
+``track``, toggle localization mode, save TUM trajectories.  As in the
+reference, planes (plane extraction and residuals, the Manhattan
+decoupled pose) and lines (detection, association, residuals, map lines)
+are on unless turned off; with both the step is the reference's full
+body.  The step runs from a CUDA graph on the card
+(``frontend/graphed_step.py``); ``warmup`` captures it and warms the
+keyframe and relocalization paths before a timed run, ``shutdown``
+finishes the frames in flight.  Whatever the flags, every keyframe goes
+through the mapping back end (``LocalMapper``: point culling,
+triangulation, fusion, keyframe, plane and line culling) and into the
+relocalization index (``Relocalizer``), which recovers lost frames; all
+of it runs on the calling thread.  Surfels and the modular tracker are
+not ported yet: asking for them raises ``NotImplementedError`` naming
+the slice that brings it.
 
 The system runs on CUDA unless ``device`` says otherwise; with no GPU it
 raises rather than falling back to the CPU.
@@ -40,8 +43,8 @@ class System:
     def __init__(
         self,
         settings: str | SlamConfig,
-        enable_planes: bool = False,
-        enable_lines: bool = False,
+        enable_planes: bool = True,
+        enable_lines: bool = True,
         enable_surfels: bool = False,
         fast: bool = True,
         pipeline: bool = False,
@@ -50,8 +53,6 @@ class System:
     ):
         later = {
             "fast=False (the modular tracker)": not fast,
-            "chunk>1 (chunk mode, keyframes at chunk boundaries)": chunk > 1,
-            "pipeline=True (chunk mode slice)": pipeline,
             "enable_surfels=True (surfels slice)": enable_surfels,
         }
         asked = [name for name, on in later.items() if on]
@@ -63,6 +64,8 @@ class System:
         self.device = resolve_device(device)
         self.enable_planes = enable_planes
         self.enable_lines = enable_lines
+        self.pipeline = pipeline
+        self.chunk = chunk
         self.map = SlamMap(self.cfg)
         self.local_mapper = LocalMapper(self.cfg, self.map, self.device)
         self.reloc_module = Relocalizer(self.cfg, self.map, self.device)
@@ -72,7 +75,8 @@ class System:
 
     def _new_tracker(self) -> None:
         self.tracker = FastTracker(
-            self.cfg, self.map, self.device, self.enable_planes, self.enable_lines)
+            self.cfg, self.map, self.device, self.enable_planes, self.enable_lines,
+            pipeline=self.pipeline, chunk=self.chunk)
         self.tracker.reloc_module = self.reloc_module
         self.tracker.on_keyframe = self._on_keyframe
 
@@ -99,8 +103,16 @@ class System:
     def deactivate_localization_mode(self) -> None:
         self.tracker.only_tracking = False
 
+    def warmup(self) -> None:
+        """Before a timed run, after a few tracked frames and a flush:
+        capture the step's graph and warm the keyframe and relocalization
+        paths (the reference compiles its programs here)."""
+        self.tracker.warm_programs()
+
     def reset(self) -> None:
-        """System reset (Tracking::Reset, Tracking.cc:2057-2087)."""
+        """System reset (Tracking::Reset, Tracking.cc:2057-2087); the new
+        tracker keeps the flags, the chunk and the pipeline."""
+        self.tracker.join_mapper()
         self.n_resets += 1
         self.map = SlamMap(self.cfg)
         self.reloc_module.reset(self.map)
@@ -119,7 +131,9 @@ class System:
         self.kf_perf["reloc_add"] += time.perf_counter() - t1
 
     def shutdown(self) -> None:
-        """Nothing is in flight: every track() call finishes its frame."""
+        """Finish the frames in flight and the deferred back end
+        (System::Shutdown, System.cc:167-186)."""
+        self.tracker.flush()
 
     def save_trajectory_tum(self, path: str) -> None:
         traj_io.save_trajectory_tum(path, self.tracker.trajectory_rows())

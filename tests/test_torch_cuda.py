@@ -363,7 +363,8 @@ def test_system_on_cuda_matches_cpu(cuda):
     float64 instead of float32 moves frame 1 by 7.3 mm."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera)
-    gpu, cpu = System(cfg), System(cfg, device="cpu")
+    gpu = System(cfg, enable_planes=False, enable_lines=False)
+    cpu = System(cfg, enable_planes=False, enable_lines=False, device="cpu")
     for i in range(12):
         ts, gray, depth = seq.frame(i)
         a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
@@ -430,8 +431,8 @@ def test_system_with_planes_on_cuda_matches_cpu(cuda):
     (the same scale-level knife edge)."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="corner")
-    gpu = System(cfg, enable_planes=True)
-    cpu = System(cfg, enable_planes=True, device="cpu")
+    gpu = System(cfg, enable_planes=True, enable_lines=False)
+    cpu = System(cfg, enable_planes=True, enable_lines=False, device="cpu")
     for i in range(12):
         ts, gray, depth = seq.frame(i)
         a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
@@ -544,7 +545,8 @@ def test_system_with_back_end_on_cuda_matches_cpu(cuda):
     the 1 cm RMS of test_system_on_cuda_matches_cpu."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="walk")
-    gpu, cpu = System(cfg), System(cfg, device="cpu")
+    gpu = System(cfg, enable_planes=False, enable_lines=False)
+    cpu = System(cfg, enable_planes=False, enable_lines=False, device="cpu")
     for i in range(12):
         ts, gray, depth = seq.frame(i)
         a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
@@ -555,3 +557,121 @@ def test_system_with_back_end_on_cuda_matches_cpu(cuda):
     pos_gpu = np.array([r[1] for r in gpu.tracker.trajectory_rows()])
     pos_cpu = np.array([r[1] for r in cpu.tracker.trajectory_rows()])
     assert np.sqrt(((pos_gpu - pos_cpu) ** 2).sum(1).mean()) < 1e-2
+
+
+def _native_cuda(frame, dev):
+    g8, d16 = dt.to_native(*frame[1:])
+    return torch.from_numpy(g8).to(dev), torch.from_numpy(d16.astype(np.int32)).to(dev)
+
+
+def test_graphed_step_equals_eager_step(cuda):
+    """The frame step replayed from its CUDA graph against the eager step,
+    on the same frames, carry and view, bit for bit (the step is
+    deterministic: tools/probe_determinism.py): after the capture, after a
+    view update written in place, after a carry reset in place."""
+    from manhattanslam_tpu_torch.frontend.graphed_step import clone_tree
+
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="near_corner")
+    system = System(cfg)  # planes and lines on, chunk 1
+    for i in range(3):
+        ts, gray, depth = seq.frame(i)
+        assert system.track(gray, depth, ts) is not None
+    tr = system.tracker
+    assert tr.step.graph is not None
+    eager = dt.build_frame_step(cfg, cuda, True, True)
+
+    def same(i):
+        carry = clone_tree(tr.carry)
+        g8, d16 = _native_cuda(seq.frame(i), cuda)
+        res_e, carry_e = eager(g8, d16, carry, tr.view)
+        res_g, carry_g = tr.step(g8, d16, carry, tr.view)
+        for k in ("summary_flat", "payload_flat"):
+            assert torch.equal(res_e[k], res_g[k]), (i, k)
+        for k in carry_e:
+            assert torch.equal(carry_e[k], carry_g[k]), (i, k)
+        return bool(res_g["tracked_ok"])
+
+    assert same(3)
+    rng = np.random.default_rng(0)
+    m = tr.map
+    m.add_points(rng.uniform(-1, 1, (32, 3)).astype(np.float32) + np.float32([0, 0, 2]),
+                 rng.integers(0, 2**32, (32, 8), dtype=np.uint64).astype(np.uint32),
+                 np.tile(np.float32([0, 0, -1]), (32, 1)), np.zeros(32, np.float32),
+                 np.full(32, 9.0, np.float32), np.zeros(32, np.int32), 0)
+    tr.refresh_view()
+    assert same(4)
+    dt.reset_carry_(tr.carry, cfg, tr.T_cw, vo_points=True)
+    assert same(5)
+
+
+def test_chunked_pipelined_system_on_cuda_matches_cpu(cuda):
+    """bench.py's dispatch form, System(pipeline=True, chunk=4) with planes
+    and lines, on the card and on the CPU over the 13 corner frames of
+    tests/test_torch_chunked.py: every frame recorded, and the two
+    trajectories within the file's 1 cm RMS."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=13, cam=cfg.camera, view="corner")
+    gpu = System(cfg, pipeline=True, chunk=4)
+    cpu = System(cfg, pipeline=True, chunk=4, device="cpu")
+    for i in range(13):
+        ts, gray, depth = seq.frame(i)
+        gpu.track(gray, depth, ts)
+        cpu.track(gray, depth, ts)
+    gpu.shutdown()
+    cpu.shutdown()
+    assert len(gpu.tracker.records) == len(cpu.tracker.records) == 13
+    assert sum(not r.lost for r in gpu.tracker.records) >= 12
+    pos_gpu = np.array([r[1] for r in gpu.tracker.trajectory_rows()])
+    pos_cpu = np.array([r[1] for r in cpu.tracker.trajectory_rows()])
+    assert pos_gpu.shape == pos_cpu.shape
+    assert np.sqrt(((pos_gpu - pos_cpu) ** 2).sum(1).mean()) < 1e-2
+
+
+def test_chunk_path_launches_each_kernel_once_per_frame(cuda):
+    """On the chunk path each kernel runs once per frame, counted through
+    the graph's replays: 1 + 3 chunks of 4 frames, the first frame eager,
+    the second captured and every later one replayed."""
+    from manhattanslam_tpu_torch.frontend.graphed_step import GraphedStep
+
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=13, cam=cfg.camera, view="corner")
+    system = System(cfg, chunk=4)
+    before, replays = _launches(), GraphedStep.replays
+    for i in range(13):
+        ts, gray, depth = seq.frame(i)
+        system.track(gray, depth, ts)
+    system.shutdown()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(), before)] == [13, 13, 13]
+    assert GraphedStep.replays - replays == 12
+
+
+def test_keyframe_slot_reuse_on_cuda(cuda):
+    """A retired keyframe's slot reused by a new keyframe on the card: the
+    view written in place equals a full upload of the map, and the graphed
+    step tracks the next frame against it."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=12, cam=cfg.camera)
+    system = System(cfg, enable_planes=False, enable_lines=False)
+    for i in range(4):
+        ts, gray, depth = seq.frame(i)
+        assert system.track(gray, depth, ts) is not None
+    tr, m = system.tracker, system.map
+    tr.force_keyframe = True
+    ts, gray, depth = seq.frame(4)
+    assert system.track(gray, depth, ts) is not None
+    retired = tr.ref_kf
+    assert retired > 0
+    m.retire_keyframe(retired)  # re-anchors the reference keyframe on the parent
+    assert m.kf_free == [retired] and tr.ref_kf != retired
+    tr.force_keyframe = True
+    ts, gray, depth = seq.frame(5)
+    assert system.track(gray, depth, ts) is not None
+    assert tr.counts["slots_reused"] == 1 and tr.ref_kf == retired and m.kf_valid[retired]
+    full = dt.upload_view(dt.build_host_view(cfg, m, tr.ref_kf, tr.reg2, tr.reg3), cuda)
+    for k in full:
+        assert torch.equal(tr.view[k], full[k]), k
+    assert tr.step.graph is not None
+    ts, gray, depth = seq.frame(6)
+    assert system.track(gray, depth, ts) is not None

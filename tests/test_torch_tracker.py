@@ -157,15 +157,22 @@ def test_init_carry_matches_reference_layout(small_cfg):
 
 
 @pytest.mark.parametrize(
-    "kwargs",
-    [dict(fast=False), dict(chunk=4), dict(pipeline=True), dict(enable_planes=True, chunk=4),
-     dict(enable_lines=True, chunk=4), dict(enable_surfels=True)],
+    "kwargs, ported",
+    [(dict(fast=False), False), (dict(chunk=4), True), (dict(pipeline=True), True),
+     (dict(enable_planes=True, chunk=4), True), (dict(enable_lines=True, chunk=4), True),
+     (dict(enable_surfels=True), False)],
 )
-def test_system_raises_for_later_slices(small_cfg, kwargs):
-    """Planes and lines are ported; either together with a later slice
-    still raises."""
-    with pytest.raises(NotImplementedError):
-        System(port_cfg(small_cfg), device="cpu", **kwargs)
+def test_system_raises_for_later_slices(small_cfg, kwargs, ported):
+    """Chunks and the pipeline are ported: those flag sets construct and
+    track a frame; the modular tracker and surfels still raise."""
+    if not ported:
+        with pytest.raises(NotImplementedError):
+            System(port_cfg(small_cfg), device="cpu", **kwargs)
+        return
+    system = System(port_cfg(small_cfg), device="cpu", **kwargs)
+    ts, gray, depth = SyntheticSequence(n_frames=1, cam=small_cfg.camera).frame(0)
+    assert system.track(gray, depth, ts) is not None
+    assert len(system.tracker.records) == 1
 
 
 def test_system_with_planes_tracks_the_corner_view(small_cfg):
@@ -173,7 +180,7 @@ def test_system_with_planes_tracks_the_corner_view(small_cfg):
     tracked, the keyframe's planes become map planes with a Manhattan pair,
     and the Manhattan pose carries frames."""
     seq = SyntheticSequence(n_frames=4, cam=small_cfg.camera, view="corner")
-    system = System(port_cfg(small_cfg), enable_planes=True, device="cpu")
+    system = System(port_cfg(small_cfg), enable_planes=True, enable_lines=False, device="cpu")
     for i in range(4):
         ts, gray, depth = seq.frame(i)
         assert system.track(gray, depth, ts) is not None
@@ -191,7 +198,7 @@ def test_system_needs_cuda_unless_cpu_is_asked(small_cfg):
 def test_system_tracks_and_saves(small_cfg, tmp_path):
     """System on the CPU: frames tracked, TUM files with 8 fields a line."""
     seq = SyntheticSequence(n_frames=4, cam=small_cfg.camera)
-    system = System(port_cfg(small_cfg), device="cpu")
+    system = System(port_cfg(small_cfg), enable_planes=False, enable_lines=False, device="cpu")
     for i in range(4):
         ts, gray, depth = seq.frame(i)
         assert system.track(gray, depth, ts) is not None

@@ -114,7 +114,7 @@ def main() -> int:
 def backend_ops(cfg) -> None:
     """aten operators of each keyframe event's back end and of each
     relocalize call on the relocalization traffic."""
-    system = System(cfg, device="cpu")
+    system = System(cfg, enable_planes=False, enable_lines=False, device="cpu")
     counts = {"keyframe event": [], "relocalize": []}
 
     def counted(name, fn):

@@ -58,7 +58,7 @@ def bench_view(cfg, frame0, dev) -> tuple[dict, int]:
     g8, d16 = dt.to_native(*frame0[1:])
     r0, _ = step(torch.from_numpy(g8).to(dev), torch.from_numpy(d16.astype(np.int32)).to(dev),
                  dt.init_carry(cfg, dev), view0)
-    feats = dt.pull_feats(r0)
+    feats = dt.pull_payload(r0)["feats"]
     kf = m.add_keyframe(np.eye(4, dtype=np.float32), 0.0, 0, feats)
     pts_c = backproject_keypoints(r0["feats"], cfg).cpu().numpy()
     sel = np.nonzero(feats["valid"] & (feats["depth"] > 0))[0][:1000]

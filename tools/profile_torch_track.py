@@ -6,6 +6,7 @@ Usage (one CUDA card, from the repository root):
     python3 tools/profile_torch_track.py [--planes] [--lines] [--frames 10] [--warmup 5] [--trace PATH]
     python3 tools/profile_torch_track.py --replay 8 [--frames 10] [--warmup 2]
     python3 tools/profile_torch_track.py --backend
+    python3 tools/profile_torch_track.py --chunk 16 [--frames 64]
 
 Tracks the synthetic 640x480 box room at the TUM1 camera with the port's
 System (points only: the orbit view), then profiles `--frames` frames with
@@ -24,6 +25,16 @@ runs the full body): B streams of the near_corner view, stream s at frame
 offset s,
 against the shared view of keyframe 0, as chip_smoke.py's replay phase.
 Every "per frame" figure is then per batched step of B frames.
+
+`--chunk C` profiles bench.py's phase 1 instead (chip_smoke.py's chunk
+phase): System(cfg, fast=True, pipeline=True, chunk=C,
+enable_surfels=False) with bench.py's cfg (640x480, the full body) on the
+"corner" view, 1 + 2C warm-up frames with a keyframe forced at frame
+1 + C, a flush and warmup(), then `--frames` frames (rounded up to whole
+chunks) and the final flush under the profiler; every figure is per
+frame, the wall time that of the whole region.  With `--chunk 1` the
+pipeline is off (the graphed frame step one frame at a time).  Graph
+launches (``cudaGraphLaunch``) are counted apart from kernel launches.
 
 `--backend` profiles the mapping back end and the relocalizer instead, on
 chip_smoke.py's mapping and reloc traffic (full body: 120 frames of the
@@ -123,6 +134,52 @@ def backend(cfg) -> None:
           f"keyframe {system.reloc_module.last_kf}, path {system.reloc_module.last_path}")
 
 
+def chunk_path(args) -> int:
+    """Profile bench.py's phase 1 at chunk C (--chunk)."""
+    C = args.chunk
+    cfg = chip_smoke.bench_cfg()
+    f = -(-args.frames // C) * C
+    warm = 1 + 2 * C
+    seq = SyntheticSequence(n_frames=warm + f, cam=cfg.camera, view="corner")
+    frames = [(ts, *dt.to_native(g, d)) for ts, g, d in (seq.frame(i) for i in range(warm + f))]
+    system = System(cfg, fast=True, pipeline=C > 1, chunk=C, enable_surfels=False)
+    for i in range(warm):
+        if i == 1 + C:
+            system.tracker.force_keyframe = True
+        system.track(frames[i][1], frames[i][2], frames[i][0])
+    system.tracker.flush()
+    system.warmup()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for ts, g8, d16 in frames[warm:]:
+            system.track(g8, d16, ts)
+        system.tracker.flush()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / f
+    events = prof.key_averages()
+    dev_ms = sum(_device_us(e) for e in events) / 1e3 / f
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"chunk {C}, pipeline {C > 1}, {f} frames, per frame: wall {wall:.2f} ms "
+          f"(profiled), device kernels {dev_ms:.3f} ms, busy share {dev_ms / wall:.3f}")
+    def per_frame(*keys):
+        return sum(e.count for e in events if any(k in e.key for k in keys)) / f
+
+    print(f"per frame: kernel launches from the host "
+          f"{per_frame('cudaLaunchKernel', 'cuLaunchKernel'):.2f}, graph launches "
+          f"{per_frame('cudaGraphLaunch'):.3f}, syncs {per_frame('Synchronize'):.3f}, copies "
+          f"{per_frame('cudaMemcpy'):.2f}; keyframes {system.tracker.counts['keyframes']}")
+    syncs = {e.key: round(e.count / f, 3) for e in events
+             if any(s in e.key for s in ("Synchronize", "cudaMemcpy", "cudaStreamWaitEvent",
+                                         "cudaEventSynchronize"))}
+    print("host-device sync and copy calls per frame:", syncs)
+    print("top device kernels by time (ms and calls per frame):")
+    for e in sorted(events, key=lambda e: -_device_us(e))[:12]:
+        if _device_us(e) > 0:
+            print(f"  {_device_us(e) / 1e3 / f:8.3f}  {e.count / f:7.1f}  {e.key[:90]}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=10)
@@ -136,6 +193,8 @@ def main() -> int:
                     help="the line branch on, on the near_corner view")
     ap.add_argument("--backend", action="store_true",
                     help="profile the keyframe events and relocalizations instead")
+    ap.add_argument("--chunk", type=int, default=0, metavar="C",
+                    help="profile bench.py's phase 1 at chunk C instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_track: needs a CUDA device", file=sys.stderr)
@@ -145,6 +204,8 @@ def main() -> int:
     if args.backend:
         backend(cfg)
         return 0
+    if args.chunk:
+        return chunk_path(args)
     n = args.warmup + args.frames
     dev = torch.device("cuda")
     view = "near_corner" if args.planes or args.lines or args.replay else "wall"
@@ -188,7 +249,8 @@ def main() -> int:
     }
     print("host-device sync and copy calls:", {k: round(v, 1) for k, v in syncs.items()})
     n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    print(f"kernel launches: {n_launch / f:.0f}")
+    print(f"kernel launches: {n_launch / f:.0f}, graph launches: "
+          f"{sum(e.count for e in events if e.key == 'cudaGraphLaunch') / f:.2f}")
     print(f"top operators by self CPU time (ms and calls per {unit}):")
     for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:20]:
         print(f"  {e.self_cpu_time_total / 1e3 / f:8.3f}  {e.count / f:7.1f}  {e.key[:90]}")
