@@ -62,6 +62,44 @@ counts go up by the captured launches on every replay.
              on the same frames, carry and view, bit for bit: after the
              capture, after a view update written in place and after a
              carry reset in place (a relocalization's).
+3a. surfels - bench.py's phase 2 on the port: System(cfg, fast=True,
+             pipeline=True, chunk=16, enable_surfels=True) with bench.py's
+             cfg on the 640x480 "walk", uint16 frames as bench.py makes
+             them: 1 + 2 x 16 warm-up frames with a keyframe forced at
+             frame 17, a flush and warmup(), then 3 timed windows of 96
+             frames.  Prints ms per frame by window, the keyframes and
+             surfel inserts in the timed windows, host ms per surfel
+             insert and one insert's launches, syncs and copies (the
+             profiler, into a fresh mapper over the same map), what the
+             inserted keyframes' plane masks left to the superpixels
+             (pixels, valid superpixels), live and fused surfels, and the
+             exported vertices split into surfels and the map planes'
+             flattened clouds, with their share inside the room.  On the
+             walk the plane masks claim every pixel, so no surfel is made
+             and the exported vertices are the map planes' alone.
+             Holds >= 90% of the frames tracked, >= 1 surfel insert in the
+             timed windows, > 90% of the vertices inside the padded room
+             (tests/test_surfels.py; depth reaches the mapper in metres),
+             live surfels exactly when some insert had a valid
+             superpixel, every keyframe inserted with its own depth
+             array, each kernel once per frame run; then the last
+             keyframe's superpixels twice on the card (equal), against
+             the CPU, and fusion and new surfels on the card against the
+             CPU given the same superpixels and state (the SP_* and
+             SURFEL_STATE_TOL tolerances).  Last, "surfels_corner": the
+             same System, warm-up and forced keyframe over phase 1's 33
+             corner frames, where the plane mask leaves most pixels: its
+             two inserts must leave live surfels, some fused into, > 90%
+             inside the room, and as many live and fused surfels as a
+             CPU mapper given the same inserts (within 1%).
+3b. modular - System(cfg) with the reference's defaults (the modular
+             tracker, planes, lines and surfels) over 30 near_corner frames
+             at 640x480: all tracked, ATE below 0.05 m, the Manhattan
+             frame on >= 3 frames, vertices exported, live surfels
+             exactly when some insert had a valid superpixel (near_corner's
+             three planes claim every pixel: none), each kernel once per
+             frame.  Prints ms per frame, the last frame's launches, syncs
+             and copies (the profiler), and the surfel yield as 3a.
 
 4. track   - the points-only System over 30 synthetic 640x480 frames at the
              TUM1 camera (the orbit view), with every kernel's launch
@@ -176,6 +214,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from manhattanslam_tpu_torch.config import CameraConfig, SlamConfig, load_config
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
@@ -183,10 +222,12 @@ from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
 from manhattanslam_tpu_torch.frontend.graphed_step import GraphedStep, clone_tree
 from manhattanslam_tpu_torch.io import trajectory as traj_io
+from manhattanslam_tpu_torch.mapping.surfel_mapping import SurfelMapper, plane_mask
 from manhattanslam_tpu_torch.ops import fast as fast_ops
 from manhattanslam_tpu_torch.ops import image as image_ops
 from manhattanslam_tpu_torch.ops import kernel_build
 from manhattanslam_tpu_torch.ops import orb as orb_ops
+from manhattanslam_tpu_torch.ops import surfels as surf_ops
 from manhattanslam_tpu_torch.parallel import mesh, replay
 from manhattanslam_tpu_torch.system import System
 
@@ -206,6 +247,36 @@ CHUNK_WARM = 1 + 2 * BENCH_CHUNK  # bench.py's warm-up frames, a keyframe forced
 CHUNK_WINDOWS = 5  # timed windows (bench.py: median of 5)
 CHUNK_WINDOW = 2 * BENCH_CHUNK  # frames per timed window
 TRACKED_SHARE = 0.9  # bench.py's own bar on the timed frames
+SURFEL_WINDOWS = 3  # bench.py phase 2: 3 timed windows of 6 chunks on the walk
+SURFEL_WINDOW = 6 * BENCH_CHUNK
+INSIDE_SHARE = 0.9  # tests/test_surfels.py: surfels inside the padded room
+# superpixels of one 640x480 keyframe, card against CPU: labels equal on
+# SP_LABEL_SHARE of the pixels and the valid flags on SP_VALID_SHARE of the
+# superpixels with the same members.  Their planes are held against a
+# float64 run on the CPU: each float32 covariance is E[xx^T] - mean mean^T
+# (the reference's), which cancels at a few metres, so a normal's float32
+# error depends on the summation order (the card's and the CPU's were
+# 0.0635 and 0.0308 rad off float64 at worst on the walk's last keyframe,
+# means 4.3e-7 and 4.8e-7 m).  The card's 99th percentile of error must
+# be within SP_ERR_RATIO of the CPU's (floors SP_ANGLE_FLOOR rad and
+# SP_MEAN_FLOOR m), its worst within SP_MAX_ANGLE rad and SP_MAX_MEAN m.
+# SP_MAX_ANGLE is 1.5 times the card's worst normal on the walk's last
+# keyframe in the two runs that read it (both 0.0635 rad); the CPU
+# float32's worst in the same runs was 0.0308 rad, so a bound on the CPU's
+# worst would not hold for another order of summation.
+# Fusion given the same superpixels and state: integer and flag fields
+# equal, floats within SURFEL_STATE_TOL.
+SP_LABEL_SHARE = 0.995
+SP_VALID_SHARE = 0.99
+SP_ERR_RATIO = 2.0
+SP_ANGLE_FLOOR = 1e-3
+SP_MEAN_FLOOR = 1e-4
+SP_WORST_SEEN = 0.0635  # rad
+SP_MAX_ANGLE = 1.5 * SP_WORST_SEEN
+SP_MAX_MEAN = 0.01
+SURFEL_STATE_TOL = 1e-5
+N_MODULAR = 30  # near_corner frames through System(cfg), the reference's defaults
+MANHATTAN_FRAMES = 3  # tests/test_planes_e2e.py: the Manhattan frame on >= 3 frames
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # float ops per interior pixel of the FAST score as csrc/fast.cu does it:
@@ -574,7 +645,8 @@ def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str,
     median ms per frame and, with planes, per-frame plane and Manhattan
     counts, with lines per-frame line counts and the map lines."""
     t0 = time.perf_counter()
-    system = System(cfg, enable_planes=enable_planes, enable_lines=enable_lines)  # CUDA
+    system = System(cfg, fast=True, enable_planes=enable_planes, enable_lines=enable_lines,
+                    enable_surfels=False)  # CUDA
     reset_launches()
     ms, tracked, n_planes, found, used = [], 0, [], 0, 0
     n_lines, n_lifted, n_assoc = [], [], []
@@ -837,7 +909,8 @@ def phase_mapping(cfg, tmp: str):
     t0 = time.perf_counter()
     seq = SyntheticSequence(n_frames=N_MAP, cam=cfg.camera, view="walk")
     frames = [seq.frame(i) for i in range(N_MAP)]
-    system = System(cfg, enable_planes=True, enable_lines=True)  # CUDA
+    system = System(cfg, fast=True, enable_planes=True, enable_lines=True,
+                    enable_surfels=False)  # CUDA
     reset_launches()
     ms, lost_runs, run = [], [], 0
     for ts, gray, depth in frames:
@@ -1064,7 +1137,7 @@ def _graph_equals_eager(cfg, frames) -> str:
     written in place, and after a carry reset in place (a
     relocalization's)."""
     dev = torch.device("cuda")
-    system = System(cfg)  # chunk 1: the graph is captured on the second frame
+    system = System(cfg, fast=True, enable_surfels=False)  # chunk 1: captured on the second frame
     tr = system.tracker
     for ts, g8, d16 in frames[:3]:
         system.track(g8, d16, ts)
@@ -1193,6 +1266,397 @@ def _chunk_walk(cfg, tmp: str) -> dict:
     return launches
 
 
+def _profile_counts(fn) -> tuple[dict, object]:
+    """CUDA kernel launches, host syncs and copies of one fn() call, from
+    the profiler's CUDA runtime events (the card synchronized before and
+    after); returns (counts, fn's result)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    counts = {
+        "launches": sum(e.count for e in ev
+                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
+        "syncs": sum(e.count for e in ev if "Synchronize" in e.key),
+        "copies": sum(e.count for e in ev if "cudaMemcpy" in e.key),
+        # the CUDA runtime calls that held the host longest: [count, ms]
+        "runtime_ms": {e.key: [e.count, round(e.cpu_time_total / 1e3, 2)] for e in sorted(
+            (e for e in ev if e.key.startswith("cu")), key=lambda e: -e.cpu_time_total)[:5]},
+    }
+    return counts, out
+
+
+def _g(xs) -> list[str]:
+    return [f"{float(x):.3g}" for x in xs]
+
+
+def _plane_errors(sp: dict, ref: dict, ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Normal angle (rad) and largest mean coordinate difference (m) of
+    superpixels ids against ref."""
+    dots = np.abs((sp["normal"][ids] * ref["normal"][ids]).sum(-1))
+    return (np.arccos(np.clip(dots, 0.0, 1.0)),
+            np.abs(sp["mean"][ids] - ref["mean"][ids]).max(-1))
+
+
+def _compare_superpixels(card: dict, cpu: dict, f64: dict) -> str:
+    """One frame's superpixels on the card against the CPU (float32) and a
+    float64 CPU run, under the SP_* tolerances; returns a report, raises
+    when they disagree."""
+    card, cpu, f64 = ({k: v.cpu().numpy() for k, v in d.items()} for d in (card, cpu, f64))
+    share = float((card["labels"] == cpu["labels"]).mean())
+    S = cpu["mean"].shape[0]
+    touched = np.zeros(S + 1, bool)
+    for a, b in ((card, cpu), (card, f64), (cpu, f64)):
+        diff = a["labels"] != b["labels"]
+        touched[np.where(diff, a["labels"], S)] = True
+        touched[np.where(diff, b["labels"], S)] = True
+    same = np.nonzero(~touched[:S] & (cpu["n_pix"] > 0))[0]
+    valid_share = float((card["valid"][same] == cpu["valid"][same]).mean())
+    both = same[card["valid"][same] & cpu["valid"][same] & f64["valid"][same]]
+    ang_card, mean_card = _plane_errors(card, f64, both)
+    ang_cpu, mean_cpu = _plane_errors(cpu, f64, both)
+    q = {k: (np.percentile(v, 99), v.max()) if len(v) else (0.0, 0.0) for k, v in
+         (("ang_card", ang_card), ("mean_card", mean_card), ("ang_cpu", ang_cpu),
+          ("mean_cpu", mean_cpu))}
+    report = (f"labels equal on {share:.6f} of the pixels, valid flags on {valid_share:.4f} of "
+              f"{len(same)} superpixels with the same members; against float64 on {len(both)} "
+              f"valid in all, [99th percentile, worst]: card normals {_g(q['ang_card'])} rad, "
+              f"means {_g(q['mean_card'])} m; CPU float32 normals {_g(q['ang_cpu'])} rad, "
+              f"means {_g(q['mean_cpu'])} m")
+    if (share < SP_LABEL_SHARE or valid_share < SP_VALID_SHARE or not len(both)
+            or q["ang_card"][0] > SP_ERR_RATIO * q["ang_cpu"][0] + SP_ANGLE_FLOOR
+            or q["mean_card"][0] > SP_ERR_RATIO * q["mean_cpu"][0] + SP_MEAN_FLOOR
+            or q["ang_card"][1] > SP_MAX_ANGLE or q["mean_card"][1] > SP_MAX_MEAN):
+        raise RuntimeError(f"surfels: superpixels card vs CPU: {report}")
+    return report
+
+
+def _check_surfel_ops(cfg, dev, system, inserts, seq) -> str:
+    """The surfel ops of the last two inserted keyframes on the card
+    against the CPU, and superpixels twice on the card.  The walk's pixels
+    are nearly all plane pixels, which the mapper leaves out, so the ops
+    run here without the plane mask, where there are superpixels to fuse:
+    superpixels (card, CPU and a float64 CPU run), then from an empty state
+    both keyframes' new surfels and fusion on the card and on the CPU,
+    given the card's superpixels; their surfels must lie in the room
+    (the uint16 depth converted to metres), and a card mapper inserting the
+    same two frames as the caller gave them must build the same state."""
+    (kf_a, g_a, d_a, memb, _), (kf_b, g_b, d_b, _, _) = inserts[-2], inserts[-1]
+    K = system.surfel_mapper.K
+    H, W = g_b.shape
+    # the keyframe's superpixels as the mapper runs them, twice on the card
+    mask = plane_mask(memb, H, W, dev)
+    frames = [(torch.from_numpy(np.asarray(g, np.float32)), torch.from_numpy(dt.depth_in_metres(d)))
+              for g, d in ((g_a, d_a), (g_b, d_b))]
+    g, d = frames[-1]
+    sp = surf_ops.superpixels(g.to(dev), d.to(dev), mask, K)
+    sp2 = surf_ops.superpixels(g.to(dev), d.to(dev), mask, K)
+    if not all(torch.equal(sp[k], sp2[k]) for k in sp):
+        raise RuntimeError("surfels: two card runs of superpixels differ: "
+                           f"{[k for k in sp if not torch.equal(sp[k], sp2[k])]}")
+    no_mask = torch.zeros((H, W), dtype=torch.bool)
+    K_cpu = K.cpu()
+    sps = [surf_ops.superpixels(g.to(dev), d.to(dev), no_mask.to(dev), K) for g, d in frames]
+    rep_sp = _compare_superpixels(
+        sps[-1], surf_ops.superpixels(g, d, no_mask, K_cpu),
+        surf_ops.superpixels(g.double(), d.double(), no_mask, K_cpu.double()))
+    cap = cfg.surfel.max_surfels
+    states = {"card": surf_ops.empty_state(cap, dev), "cpu": surf_ops.empty_state(cap, "cpu")}
+    n_fused = 0
+    for kf, sp_k in zip((kf_a, kf_b), sps):
+        T_cw = torch.from_numpy(system.map.kf_pose[kf].astype(np.float32))
+        T_wc = torch.from_numpy(np.linalg.inv(system.map.kf_pose[kf].astype(np.float32)))
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            sp_d = {k: v.to(device) for k, v in sp_k.items()}
+            fused = surf_ops.fuse_surfels(states[name], sp_d, T_cw.to(device), T_wc.to(device),
+                                          K.to(device), kf, H, W)
+            surf_ops.add_new_surfels(states[name], sp_d, fused, T_wc.to(device), kf)
+            n_fused = int(fused.sum()) if name == "card" else n_fused
+    err = 0.0
+    for k, v in states["cpu"].items():
+        a = states["card"][k].cpu()
+        if v.dtype.is_floating_point:
+            err = max(err, float((a - v).abs().max()))
+        elif not torch.equal(a, v):
+            raise RuntimeError(f"surfels: {k} differs between card and CPU after two keyframes")
+    if err > SURFEL_STATE_TOL:
+        raise RuntimeError(f"surfels: the surfel state differs by {err} between card and CPU")
+    mapper = SurfelMapper(cfg, system.map, dev)
+    mapper.insert_keyframe(kf_a, g_a, d_a, ref_kf=None)
+    mapper.insert_keyframe(kf_b, g_b, d_b, ref_kf=kf_a)
+    bad = [k for k in states["card"] if not torch.equal(mapper.surfels[k], states["card"][k])]
+    if bad:
+        raise RuntimeError(f"surfels: the mapper's uint16 inserts differ from the ops in metres: {bad}")
+    live = states["cpu"]["valid"].numpy()
+    inside = _inside_room(seq, states["cpu"]["pos"].numpy()[live])
+    if not live.any() or not n_fused or inside <= INSIDE_SHARE:
+        raise RuntimeError(f"surfels: without the plane mask {int(live.sum())} surfels, "
+                           f"{n_fused} fused, {inside} inside the room")
+    return (f"keyframe {kf_b}'s superpixels twice on the card equal; card vs CPU (no plane "
+            f"mask) {rep_sp}; keyframes {kf_a} then {kf_b} fused on the card and on the CPU from "
+            f"the card's superpixels: {int(live.sum())} surfels, {n_fused} superpixels fused, flags "
+            f"and counts equal, floats within {err:.3g}, {inside:.4f} inside the room; a card "
+            f"mapper given the uint16 frames built the same state")
+
+
+def _record_inserts(mapper) -> list:
+    """Record each insert_keyframe call of the mapper as (kf_id, gray,
+    depth, plane_membership, ref_kf); returns the list it fills."""
+    inserts, insert = [], mapper.insert_keyframe
+
+    def recorded(kf_id, gray, depth, plane_membership=None, ref_kf=None):
+        inserts.append((kf_id, gray, depth, plane_membership, ref_kf))
+        return insert(kf_id, gray, depth, plane_membership=plane_membership, ref_kf=ref_kf)
+
+    mapper.insert_keyframe = recorded
+    return inserts
+
+
+def _surfel_yield(name: str, mapper, inserts) -> dict:
+    """What the plane masks of the inserted keyframes left to the
+    superpixels: usable pixels (depth, no plane) and valid superpixels,
+    run again on the mapper's device; the map's live surfels, those fused
+    into at least once, and the exported vertices split into stable
+    surfels and the map planes' flattened clouds.  Raises unless the map
+    holds surfels exactly when some insert had a valid superpixel (no
+    surfel is ever removed)."""
+    usable = n_valid = 0
+    for kf_id, gray, depth, memb, _ in inserts:
+        g = dt.to_device(np.asarray(gray, np.float32), mapper.device)
+        d = dt.to_device(dt.depth_in_metres(depth), mapper.device)
+        mask = plane_mask(memb, *g.shape, mapper.device)
+        usable += int(((d > 0) & ~mask).sum())
+        n_valid += int(surf_ops.superpixels(g, d, mask, mapper.K)["valid"].sum())
+    s = mapper.surfels
+    m = mapper.map
+    out = {"usable": usable, "valid_sp": n_valid, "live": int(s["valid"].sum()),
+           "fused": int((s["valid"] & (s["n_updates"] >= 2)).sum()),
+           "plane_pts": int(sum(m.pl_n_pts[j] for j in np.nonzero(m.pl_valid)[0])),
+           "exported": len(mapper.export_arrays()["pos"])}
+    out["surfels_exported"] = out["exported"] - out["plane_pts"]
+    if (out["live"] > 0) != (n_valid > 0):
+        raise RuntimeError(f"{name}: {out['live']} live surfels after {len(inserts)} inserts with "
+                           f"{n_valid} valid superpixels")
+    return out
+
+
+def _yield_report(y: dict, n_inserts: int) -> str:
+    return (f"the plane masks of the {n_inserts} inserted keyframes left {y['usable']} pixels and "
+            f"{y['valid_sp']} valid superpixels; live surfels {y['live']} ({y['fused']} fused into "
+            f"at least once); exported vertices {y['exported']}: {y['surfels_exported']} surfels "
+            f"and {y['plane_pts']} points of the map planes' flattened clouds")
+
+
+def _inside_room(seq, pos: np.ndarray) -> float:
+    """Share of the points (first camera's frame) inside the padded room
+    (tests/test_surfels.py's bar)."""
+    T0 = seq.poses[0]
+    room = pos @ T0[:3, :3].T + T0[:3, 3]
+    return float(((room > -0.5).all(1) & (room < np.array(seq.room.size) + 0.5).all(1)).mean()
+                 ) if len(room) else 0.0
+
+
+def _surfels_corner(cfg, smi: str) -> dict:
+    """bench.py phase 2's System and warm-up on phase 1's corner view,
+    where the plane mask leaves most of each frame to the superpixels
+    (the walk's leaves none): 1 + 2 x chunk uint16 frames, a keyframe
+    forced at 1 + chunk, flush.  The surfels that the two keyframes'
+    inserts build on the card must be live, partly fused, inside the
+    room, and as many as a CPU mapper inserting the same frames, plane
+    memberships and links builds, within the valid-flag share that
+    superpixels on the card and the CPU are held to.  Returns the launch
+    counts."""
+    t0 = time.perf_counter()
+    seq = SyntheticSequence(n_frames=CHUNK_WARM, cam=cfg.camera, view="corner")
+    frames = []
+    for i in range(CHUNK_WARM):
+        ts, gray, depth = seq.frame(i)
+        frames.append((ts, *dt.to_native(gray, depth)))
+    reset_launches()
+    system = System(cfg, fast=True, pipeline=True, chunk=BENCH_CHUNK, enable_surfels=True)
+    tr, mapper = system.tracker, system.surfel_mapper
+    inserts = _record_inserts(mapper)
+    for i, (ts, g8, d16) in enumerate(frames):
+        if i == 1 + BENCH_CHUNK:
+            tr.force_keyframe = True
+        system.track(g8, d16, ts)
+    tr.flush()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    y = _surfel_yield("surfels_corner", mapper, inserts)
+    cpu = SurfelMapper(cfg, system.map, "cpu")
+    for kf_id, gray, depth, memb, ref_kf in inserts:
+        cpu.insert_keyframe(kf_id, gray, depth,
+                            plane_membership=None if memb is None else memb.cpu(), ref_kf=ref_kf)
+    live_cpu = int(cpu.surfels["valid"].sum())
+    fused_cpu = int((cpu.surfels["valid"] & (cpu.surfels["n_updates"] >= 2)).sum())
+    s = mapper.surfels
+    inside = _inside_room(seq, s["pos"][s["valid"]].cpu().numpy())
+    n_ok = sum(not r.lost for r in tr.records)
+    log(f"surfels_corner: the same System on the 640x480 corner, {CHUNK_WARM} uint16 frames, on "
+        f"{smi}: {n_ok}/{CHUNK_WARM} frames tracked, keyframes {tr.counts['keyframes']}, surfel "
+        f"inserts {len(inserts)}; {_yield_report(y, len(inserts))}; live surfels inside the room "
+        f"{inside:.4f}; a CPU mapper given the same inserts: live {live_cpu}, fused {fused_cpu}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    slack = 1.0 - SP_VALID_SHARE
+    if (len(inserts) < 2 or not y["live"] or not y["fused"] or inside <= INSIDE_SHARE
+            or abs(y["live"] - live_cpu) > slack * live_cpu
+            or abs(y["fused"] - fused_cpu) > slack * fused_cpu):
+        raise RuntimeError(f"surfels_corner: {len(inserts)} inserts, live {y['live']} (CPU "
+                           f"{live_cpu}), fused {y['fused']} (CPU {fused_cpu}), inside {inside}")
+    if n_ok != CHUNK_WARM:
+        raise RuntimeError(f"surfels_corner: {n_ok} of {CHUNK_WARM} frames tracked")
+    _check_launches("surfels_corner", launches, tr.step.calls)
+    return launches
+
+
+def phase_surfels(tmp: str, smi: str) -> dict:
+    """bench.py phase 2's procedure on the port: System(cfg, fast=True,
+    pipeline=True, chunk=16, enable_surfels=True) on the walk, uint16
+    frames; then the same System on the corner (_surfels_corner).
+    Returns the launch counts of both runs."""
+    t0 = time.perf_counter()
+    cfg = bench_cfg()
+    dev = torch.device("cuda")
+    n = CHUNK_WARM + SURFEL_WINDOWS * SURFEL_WINDOW
+    seq = SyntheticSequence(n_frames=n, cam=cfg.camera, view="walk")
+    frames = []
+    for i in range(n):
+        ts, gray, depth = seq.frame(i)
+        frames.append((ts, *dt.to_native(gray, depth)))  # u8 gray, u16 depth, as bench.py
+    reset_launches()
+    system = System(cfg, fast=True, pipeline=True, chunk=BENCH_CHUNK, enable_surfels=True)
+    tr, mapper = system.tracker, system.surfel_mapper
+    inserts = _record_inserts(mapper)
+    for i in range(CHUNK_WARM):
+        if i == 1 + BENCH_CHUNK:
+            tr.force_keyframe = True
+        system.track(frames[i][1], frames[i][2], frames[i][0])
+    tr.flush()
+    system.warmup()
+    torch.cuda.synchronize()
+    kf0, ins0, ins_s0 = tr.counts["keyframes"], len(inserts), system.kf_perf["surfel_insert"]
+    marks = [time.perf_counter()]
+    for w in range(SURFEL_WINDOWS):
+        lo = CHUNK_WARM + w * SURFEL_WINDOW
+        for ts, g8, d16 in frames[lo: lo + SURFEL_WINDOW]:
+            system.track(g8, d16, ts)
+        marks.append(time.perf_counter())
+    tr.flush()
+    torch.cuda.synchronize()
+    marks[-1] = time.perf_counter()
+    launches = read_launches()
+    windows = [(b - a) * 1e3 / SURFEL_WINDOW for a, b in zip(marks, marks[1:])]
+    kf_timed = tr.counts["keyframes"] - kf0
+    ins_timed = len(inserts) - ins0
+    host_ms = (system.kf_perf["surfel_insert"] - ins_s0) * 1e3 / max(ins_timed, 1)
+    traj = os.path.join(tmp, "CameraTrajectory_surfels.txt")
+    system.save_trajectory_tum(traj)
+    ts_e, pos_e, _ = traj_io.load_trajectory_tum(traj)
+    gt = seq.gt_rows()
+    ate = traj_io.ate_rmse(
+        (ts_e, pos_e), (np.array([r[0] for r in gt]), np.array([r[1] for r in gt])))
+    n_ok = sum(not r.lost for r in tr.records)
+    y = _surfel_yield("surfels", mapper, inserts)
+    inside = _inside_room(seq, mapper.export_arrays()["pos"])
+    # one insert's launches, syncs and copies: the last keyframe's frame
+    # into a fresh mapper over the same map (the same code path)
+    last = inserts[-1]
+    fresh = SurfelMapper(cfg, system.map, dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fresh.insert_keyframe(*last[:3], plane_membership=last[3], ref_kf=None)
+    t_host = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    t_idle = (time.perf_counter() - t) * 1e3
+    prof, _ = _profile_counts(lambda: fresh.insert_keyframe(
+        *last[:3], plane_membership=last[3], ref_kf=None))
+    log(f"surfels: System(cfg, fast=True, pipeline=True, chunk={BENCH_CHUNK}, enable_surfels=True), "
+        f"bench.py phase 2 on the port: the 640x480 walk, uint16 frames, on {smi}: ms per frame "
+        f"by window {[round(w, 2) for w in windows]} (median {statistics.median(windows):.2f}); "
+        f"{n_ok}/{n} frames tracked, ATE {ate:.4f} m; keyframes in the timed windows {kf_timed}, "
+        f"surfel inserts {ins_timed} (all {len(inserts)}); host ms per surfel insert {host_ms:.2f}; "
+        f"one insert on an idle card: {t_host:.2f} ms host, {t_idle:.2f} ms to its end, "
+        f"{prof['launches']} launches, {prof['syncs']} syncs, {prof['copies']} copies, the "
+        f"runtime calls that held the host longest [count, ms] {prof['runtime_ms']}; "
+        f"{_yield_report(y, len(inserts))}; exported vertices inside the room {inside:.4f}"
+        f"{' (the map planes alone)' if not y['surfels_exported'] else ''}")
+    log(f"surfels: host ms [total, events] in the timed region "
+        f"{ {k: [round(v * 1e3, 1), tr.perf_n[k]] for k, v in sorted(tr.perf.items())} }; "
+        f"{backend_report(system)}")
+    log(f"surfels: {_check_surfel_ops(cfg, dev, system, inserts, seq)}")
+    if ins_timed < 1:
+        raise RuntimeError("surfels: no keyframe with a surfel insert in the timed windows")
+    if not y["exported"] or inside <= INSIDE_SHARE:
+        raise RuntimeError(f"surfels: {y['exported']} vertices exported, {inside} inside the room")
+    if n_ok < TRACKED_SHARE * n:
+        raise RuntimeError(f"surfels: {n_ok} of {n} frames tracked")
+    for kf_id, gray, depth, _, _ in inserts:
+        fid = int(system.map.kf_frame_id[kf_id])
+        if depth is not frames[fid][2]:
+            raise RuntimeError(f"surfels: keyframe {kf_id} was inserted with another frame's depth")
+    _check_launches("surfels", launches, tr.step.calls)
+    corner_launches = _surfels_corner(cfg, smi)
+    log(f"phase surfels: {time.perf_counter() - t0:.1f} s")
+    return launches, corner_launches
+
+
+def phase_modular(tmp: str, smi: str) -> dict:
+    """System(cfg) with the reference's defaults (the modular tracker,
+    planes, lines and surfels on) over N_MODULAR near_corner frames at
+    640x480; returns the launch counts."""
+    t0 = time.perf_counter()
+    cfg = bench_cfg()
+    seq = SyntheticSequence(n_frames=N_MODULAR, cam=cfg.camera, view="near_corner")
+    frames = [seq.frame(i) for i in range(N_MODULAR)]
+    reset_launches()
+    system = System(cfg)  # CUDA, the reference's defaults
+    inserts = _record_inserts(system.surfel_mapper)
+    pm = system.tracker.plane_module
+    ms, tracked, manhattan, profiled = [], 0, 0, None
+    for i, (ts, gray, depth) in enumerate(frames):
+        t = time.perf_counter()
+        if i == N_MODULAR - 1:  # the last frame profiled (CUPTI tracing slows it)
+            profiled, T = _profile_counts(lambda: system.track(gray, depth, ts))
+        else:
+            T = system.track(gray, depth, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        tracked += T is not None
+        manhattan += pm.manhattan_Rcw is not None
+    system.shutdown()
+    launches = read_launches()
+    traj = os.path.join(tmp, "CameraTrajectory_modular.txt")
+    system.save_trajectory_tum(traj)
+    ts_e, pos_e, _ = traj_io.load_trajectory_tum(traj)
+    gt = seq.gt_rows()
+    ate = traj_io.ate_rmse(
+        (ts_e, pos_e), (np.array([r[0] for r in gt]), np.array([r[1] for r in gt])))
+    ply_path = os.path.join(tmp, "Surfels_modular.ply")
+    system.save_surfels(ply_path)
+    y = _surfel_yield("modular", system.surfel_mapper, inserts)
+    m = system.map
+    log(f"modular: System(cfg) (the modular tracker, planes, lines and surfels on), 640x480 "
+        f"near_corner, on {smi}: {tracked}/{N_MODULAR} frames tracked, ATE {ate:.4f} m, the "
+        f"Manhattan frame on {manhattan} frames; median {statistics.median(ms[1:]):.1f} ms per frame, "
+        f"largest {max(ms[1:]):.1f} (first frame {ms[0]:.0f} ms); the last frame "
+        f"{profiled}; keyframes {m.n_kf}, map planes {int(m.pl_valid.sum())}, map lines "
+        f"{int(m.ml_valid.sum())}; {_yield_report(y, len(inserts))}; kernel launches {launches}")
+    log(f"modular: {backend_report(system)}; surfel inserts "
+        f"{system.surfel_mapper.n_keyframes}, host ms per insert "
+        f"{system.kf_perf['surfel_insert'] * 1e3 / max(system.surfel_mapper.n_keyframes, 1):.2f}")
+    if tracked != N_MODULAR or not ate < ATE_LIMIT:
+        raise RuntimeError(f"modular: {tracked} of {N_MODULAR} frames tracked, ATE {ate} m")
+    if manhattan < MANHATTAN_FRAMES:
+        raise RuntimeError(f"modular: the Manhattan frame on {manhattan} frames only")
+    if not y["exported"]:
+        raise RuntimeError("modular: nothing exported")
+    _check_launches("modular", launches, N_MODULAR)
+    log(f"phase modular: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1207,6 +1671,8 @@ def main() -> int:
     stats = phase_kernels(cfg, dev, frames)
     with tempfile.TemporaryDirectory() as tmp:
         chunk_launches, chunk1_launches, walk_launches = phase_chunk(tmp, smi)
+        surfel_launches, surfel_corner_launches = phase_surfels(tmp, smi)
+        modular_launches = phase_modular(tmp, smi)
         track_launches, track_ms = phase_track(cfg, seq, frames, tmp)
         corner_launches, near_launches = phase_planes(cfg, tmp)
         full_launches = phase_full(cfg, tmp)
@@ -1214,12 +1680,15 @@ def main() -> int:
         reloc_launches = phase_reloc(cfg, system, walk)
     replay_launches = phase_replay(cfg, dev, track_ms)
     launches = {"chunk": chunk_launches, "chunk1": chunk1_launches, "chunk_walk": walk_launches,
+                "surfels": surfel_launches, "surfels_corner": surfel_corner_launches,
+                "modular": modular_launches,
                 "track": track_launches, "planes_corner": corner_launches,
                 "planes_near_corner": near_launches, "full": full_launches,
                 "mapping": mapping_launches, "reloc": reloc_launches,
                 "replay": replay_launches}
-    paths = {"chunk": ("chunk", "chunk1", "chunk_walk", "track", "planes_corner",
-                       "planes_near_corner", "full", "mapping", "reloc"),
+    paths = {"chunk": ("chunk", "chunk1", "chunk_walk", "surfels", "surfels_corner", "modular",
+                       "track", "planes_corner", "planes_near_corner", "full", "mapping",
+                       "reloc"),
              "replay": ("replay",)}
     rows = []
     for name, k in KERNELS.items():

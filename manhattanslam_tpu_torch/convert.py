@@ -5,7 +5,8 @@ map's point, line, plane and keyframe tables with the Manhattan registries
 and the retired keyframe slots, the per-frame device carry, the BRIEF
 pattern, and the back end's state (the mapper's points on probation, the
 relocalizer's word histograms, the tracker's last relocalization and
-trajectory records).  These functions take that state as numpy arrays and
+trajectory records) and the surfel map (its capacity arrays and pose
+graph).  These functions take that state as numpy arrays and
 dicts (as the JAX package's ``SlamMap`` attributes, its
 ``FastTracker.reg2`` / ``reg3``, ``jax.device_get(init_carry(...))`` and
 ``ops.orb.PATTERN`` hand it over) and return the port's objects, so the
@@ -148,3 +149,39 @@ def load_backend_state(state: dict, local_mapper=None, reloc=None, tracker=None)
         tracker.last_reloc_frame_id = int(state["last_reloc_frame_id"])
         tracker.records = [FrameRecord(float(t), int(kf), np.array(T, np.float32), bool(lost))
                            for t, kf, T, lost in state["records"]]
+
+
+# the surfel map's capacity arrays (ops/surfels.py's state)
+SURFEL_KEYS = ("pos", "normal", "color", "radius", "weight", "n_updates", "last_kf",
+               "attach_kf", "valid", "active")
+
+
+def _host_copy(a) -> np.ndarray:
+    return a.cpu().numpy().copy() if isinstance(a, torch.Tensor) else np.array(a)
+
+
+def surfel_state_to_numpy(mapper) -> dict:
+    """Either package's SurfelMapper state: copies of the ten capacity
+    arrays, the pose-graph links, the keyframe count and the last keyframe
+    inserted."""
+    return {
+        "surfels": {k: _host_copy(mapper.surfels[k]) for k in SURFEL_KEYS},
+        "pose_links": {int(k): {int(q) for q in v} for k, v in mapper.pose_links.items()},
+        "n_keyframes": int(mapper.n_keyframes),
+        "_last_inserted": None if mapper._last_inserted is None else int(mapper._last_inserted),
+    }
+
+
+def load_surfel_state(state: dict, mapper) -> None:
+    """Put surfel_state_to_numpy's state into the port's SurfelMapper, its
+    tensors written in place."""
+    for k in SURFEL_KEYS:
+        src = np.asarray(state["surfels"][k])
+        dst = mapper.surfels[k]
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"surfels {k}: shape {src.shape}, the config needs {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(src)))
+    mapper.pose_links = {int(k): {int(q) for q in v} for k, v in state["pose_links"].items()}
+    mapper.n_keyframes = int(state["n_keyframes"])
+    last = state["_last_inserted"]
+    mapper._last_inserted = None if last is None else int(last)

@@ -73,6 +73,15 @@ def to_native(gray: np.ndarray, depth: np.ndarray) -> tuple[np.ndarray, np.ndarr
     return gray, depth
 
 
+def depth_in_metres(depth: np.ndarray) -> np.ndarray:
+    """A host depth frame as float32 metres: uint16 frames are in
+    1/DEPTH_QUANT m and scaled as the step scales them (frame_to_float);
+    float frames pass through."""
+    if depth.dtype == np.uint16:
+        return depth.astype(np.float32) * np.float32(1.0 / DEPTH_QUANT)
+    return np.asarray(depth, np.float32)
+
+
 # ---------------------------------------------------------------- map view
 # groups of view keys that share one leading row index
 _VIEW_GROUPS = {
@@ -833,7 +842,8 @@ PAYLOAD_KEYS = (
 # what a frame's output slot keeps (frame step / chunk step): the flat
 # buffers and the features (the relocalizer's input, the payload's
 # descriptors); a chunk also keeps each frame's plane membership image,
-# as the reference's does for its surfel mapper
+# as the reference's does for its surfel mapper (a frame's slot keeps it
+# only for the surfel arm, FastTracker.keep_membership)
 FRAME_KEEP = ("summary_flat", "payload_flat", "feats")
 CHUNK_KEEP = ("core_flat", "kfx_flat", "payload_flat", "plane_membership", "feats")
 

@@ -67,7 +67,9 @@ import torch
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend.graphed_step import GraphedStep, copy_tree_
-from manhattanslam_tpu_torch.frontend.tracking import LOST, NOT_INITIALIZED, OK, FrameRecord
+from manhattanslam_tpu_torch.frontend.tracking import (
+    LOST, NOT_INITIALIZED, OK, FrameRecord, KeyframeFrame,
+)
 from manhattanslam_tpu_torch.geometry import se3
 from manhattanslam_tpu_torch.ops.planes import transform_plane_np
 from manhattanslam_tpu_torch.slam_map import SlamMap
@@ -83,6 +85,7 @@ class FastTracker:
         enable_lines: bool = False,
         pipeline: bool = False,
         chunk: int = 1,
+        keep_membership: bool = False,
     ):
         self.cfg = cfg
         self.map = slam_map
@@ -128,9 +131,15 @@ class FastTracker:
         self._stage_i = 0
         self._out = [None] * n_slots
         self._out_i = 0
+        # the surfel arm reads a keyframe's plane membership: only then does
+        # a frame's output slot keep it and a keyframe clone it
+        self.keep_membership = keep_membership
+        self._frame_keep = dt.FRAME_KEEP + (("plane_membership",) if keep_membership else ())
         self._pull_stream = torch.cuda.Stream(self.device) if pin else None
         self._pending = []  # frames or chunks enqueued, not yet finished
-        self._buf = []  # chunk mode: (timestamp, frame_id, g8, d16) buffered
+        # chunk mode: (timestamp, frame_id, g8, d16, gray, depth) buffered;
+        # the caller's gray and depth go to the surfel arm at a keyframe
+        self._buf = []
         self._backend_job = None  # chunk mode: the deferred back end
         self._chunk_restart = False
         self.perf = defaultdict(float)  # host seconds per section
@@ -190,11 +199,11 @@ class FastTracker:
             self._vo_flag = self.only_tracking
         g8, d16 = dt.to_native(gray, depth)
         if self.state == NOT_INITIALIZED:
-            self._initialize(timestamp, g8, d16)
+            self._initialize(timestamp, g8, d16, (gray, depth))
             self._record(timestamp, lost=False)
             return self.T_cw.copy()
         if self.chunk > 1:
-            self._buf_append((timestamp, self.frame_id, g8, d16))
+            self._buf_append((timestamp, self.frame_id, g8, d16, gray, depth))
             if len(self._buf) < self.chunk:
                 return None
             return self._dispatch_chunk()
@@ -206,13 +215,14 @@ class FastTracker:
             slot = self._to_slot(result)
             pulled = dt.HostPull([slot["summary_flat"]])
         self.last_result = result
-        pend = (timestamp, self.frame_id, slot, None, None, pulled)
+        pend = functools.partial(self._finish_frame, timestamp, self.frame_id, (gray, depth),
+                                 slot, pulled=pulled)
         if self.pipeline:
             self._pending.append(pend)
             if len(self._pending) >= self.pipeline_depth + 1:
-                return self._finish_frame(*self._pending.pop(0))
+                return self._pending.pop(0)()
             return None
-        return self._finish_frame(*pend)
+        return pend()
 
     def flush(self):
         """Finish the frames in flight and the buffered partial chunk
@@ -222,7 +232,7 @@ class FastTracker:
         while self._pending or self._buf:
             if self._pending:
                 pend = self._pending.pop(0)
-                pose = self._process_chunk(*pend) if self.chunk > 1 else self._finish_frame(*pend)
+                pose = self._process_chunk(*pend) if self.chunk > 1 else pend()
             else:
                 metas, self._buf = self._buf, []
                 g8s, d16s = self._stage[self._stage_i]
@@ -241,9 +251,10 @@ class FastTracker:
         return pair
 
     def _to_slot(self, result: dict) -> dict:
-        """Copy a frame's FRAME_KEEP outputs into the next output slot (the
-        next replay overwrites the graph's)."""
-        lite = dt.keep(result, dt.FRAME_KEEP)
+        """Copy a frame's FRAME_KEEP outputs (and its plane membership for
+        the surfel arm) into the next output slot (the next replay
+        overwrites the graph's)."""
+        lite = dt.keep(result, self._frame_keep)
         i = self._out_i
         self._out_i = (i + 1) % len(self._out)
         if self._out[i] is None:
@@ -304,8 +315,9 @@ class FastTracker:
         m.ml_visible += np.where(m.ml_valid, stats["ml_visible"], 0)
         m.ml_found += np.where(m.ml_valid, stats["ml_found"], 0)
         out = None
-        for i, (ts, fid, _g8, _d16) in enumerate(metas):
-            pose = self._finish_frame(ts, fid, results, cores[i], i, None, epoch, kfx)
+        for i, (ts, fid, _g8, _d16, gray, depth) in enumerate(metas):
+            pose = self._finish_frame(ts, fid, (gray, depth), results, cores[i], i, None, epoch,
+                                      kfx)
             out = pose if pose is not None else out
             if self._chunk_restart:
                 # a relocalization inside the chunk: its later frames and the
@@ -342,12 +354,12 @@ class FastTracker:
             job()
 
     # ------------------------------------------------------------ a frame
-    def _finish_frame(self, timestamp: float, frame_id: int, result: dict, s=None, idx=None,
-                      pulled=None, epoch=None, kfx=None) -> np.ndarray | None:
-        """The host side of one frame: its summary `s` (pulled from
-        `result` when None; chunk mode passes the core of frame `idx`),
-        the relocalization of a lost frame, the landmark statistics, the
-        keyframe decision."""
+    def _finish_frame(self, timestamp: float, frame_id: int, frame: tuple, result: dict, s=None,
+                      idx=None, pulled=None, epoch=None, kfx=None) -> np.ndarray | None:
+        """The host side of one frame (`frame`: the caller's gray and
+        depth of it): its summary `s` (pulled from `result` when None;
+        chunk mode passes the core of frame `idx`), the relocalization of
+        a lost frame, the landmark statistics, the keyframe decision."""
         if s is None:
             with self._timed("summary_pull"):
                 s = dt.pull_summary(result, self.layouts["summary"], pulled)
@@ -406,7 +418,7 @@ class FastTracker:
         if not self.only_tracking and view_fresh and self._need_new_keyframe(s, frame_id):
             if idx is not None:  # the keyframe extras of this one frame
                 s = {**s, **dt.pull_kfx(kfx, idx, self.layouts["kfx"])}
-            self._create_keyframe(timestamp, result, s, frame_id, idx)
+            self._create_keyframe(timestamp, result, s, frame_id, frame, idx)
         self._record(timestamp, lost=False)
         return self.T_cw.copy()
 
@@ -464,7 +476,7 @@ class FastTracker:
             self._new_plane_streak = 0
         return decision
 
-    def _create_keyframe(self, timestamp, result, s, frame_id, idx=None) -> None:
+    def _create_keyframe(self, timestamp, result, s, frame_id, frame, idx=None) -> None:
         with self._timed("keyframe_event"):
             m = self.map
             with self._timed("kf_payload_pull"):
@@ -487,25 +499,37 @@ class FastTracker:
                 self.ref_kf = kf_id
                 self.last_kf_frame_id = frame_id
                 self._ref_matches = None
+                kf_frame = self._keyframe_frame(result, idx, frame)
             # the new keyframe's points enter the device view now, so the
             # next frame or chunk enqueued tracks against them; frames
             # already in flight keep their older epoch and mint nothing
             self._view_epoch += 1
             with self._timed("kf_view_diff"):
                 self._refresh_view_apply()
-        job = functools.partial(self._backend, kf_id)
+        job = functools.partial(self._backend, kf_id, kf_frame)
         if self.chunk > 1:
             self._backend_job = job  # runs after the next chunk is enqueued
         else:
             job()
 
-    def _backend(self, kf_id: int) -> None:
-        """The keyframe's back end and relocalization index, then the view
-        refresh that carries their landmarks to the device."""
+    def _keyframe_frame(self, result: dict, idx, frame: tuple) -> KeyframeFrame:
+        """What the surfel arm reads of a keyframe: the caller's gray and
+        depth of its own frame, a device copy of its plane membership
+        when the arm asked for it (a clone on the compute stream, not a
+        pull: the output slot is reused by a later frame or chunk before
+        a deferred back end runs), and the reference keyframe before it."""
+        memb = result.get("plane_membership") if self.keep_membership else None
+        if memb is not None:
+            memb = (memb if idx is None else memb[idx]).clone()
+        return KeyframeFrame(*frame, memb, self.prev_ref_kf)
+
+    def _backend(self, kf_id: int, kf_frame: KeyframeFrame) -> None:
+        """The keyframe's back end, relocalization index and surfels, then
+        the view refresh that carries their landmarks to the device."""
         if self.on_keyframe is None:
             return
         with self._timed("mapping_backend"):
-            self.on_keyframe(kf_id)
+            self.on_keyframe(kf_id, kf_frame)
         with self._timed("backend_view_diff"):
             self._refresh_view_apply()
 
@@ -635,10 +659,11 @@ class FastTracker:
             m.kf_ml_idx[kf_id, i] = j
 
     # ------------------------------------------------------- initialization
-    def _initialize(self, timestamp, g8, d16) -> None:
+    def _initialize(self, timestamp, g8, d16, frame: tuple) -> None:
         """First frame: its features become keyframe 0 with every depth
         point as a landmark.  Its step is the graphed step's eager first
-        call (chunk mode too), and the carry starts afresh after it."""
+        call (chunk mode too), and the carry starts afresh after it.
+        `frame`: the caller's (gray, depth) of it."""
         self.T_cw = np.eye(4, dtype=np.float32)
         self.refresh_view()  # bootstrap view (empty map) so the step can run
         g8s, d16s = self._next_stage()
@@ -664,11 +689,12 @@ class FastTracker:
             self._kf_planes(kf_id, payload, np.full(P, -1, np.int32))
         if self.enable_lines:
             self._kf_lines(kf_id, payload)
+        self.prev_ref_kf = self.ref_kf
         self.ref_kf = kf_id
         self.last_kf_frame_id = self.frame_id
         self.state = OK
         if self.on_keyframe is not None:
-            self.on_keyframe(kf_id)
+            self.on_keyframe(kf_id, self._keyframe_frame(result, None, frame))
         self.refresh_view()
         self._ref_matches = None
 

@@ -7,10 +7,11 @@ each become a keypoint-indexed ``PoseProblem`` that also carries the
 frame's plane associations (``PlaneObs``) and line associations
 (``LineObs``); ``track_projection`` adds the
 solve, with the rotation frozen for the Manhattan decoupled solve
-(``translation_only``), and the match bookkeeping.  The reference's
-``track_descriptors`` (descriptor matching + solve) runs inside the fused
-step's batched Manhattan solve (frontend/device_tracker.py), whose
-descriptor problem is the candidate stage's with the plane observations.
+(``translation_only``), and the match bookkeeping; ``track_descriptors``
+the solve of the descriptor problem.  The fused step
+(frontend/device_tracker.py) builds its problems from these and solves
+them in batches; the modular tracker (frontend/tracking.py) calls
+``track_projection`` and ``track_descriptors`` one frame at a time.
 
 The functions take one frame's arrays or B streams' arrays with a leading
 stream axis (the reference's vmapped replay).  A PoseProblem always has
@@ -211,7 +212,7 @@ def track_projection(
     bf,
     radius: float,
     image_hw: tuple[int, int],
-    cand: dict,
+    cand: dict | None = None,
     scale_factor: float = 1.2,
     n_rounds: int = 4,
     n_iters: int = 10,
@@ -223,9 +224,19 @@ def track_projection(
     use_planes: bool = False,
     line_obs: LineObs | None = None,
     use_lines: bool = False,
+    n_levels: int = 8,
+    use_scale_gate: bool = False,
 ) -> dict:
     """Project each stream's landmark bank (B, N, ...) from its seed pose
-    T_seed (B, 4, 4), match, solve: one batch of B problems."""
+    T_seed (B, 4, 4), match, solve: one batch of B problems.  `cand`: the
+    frame's shared frustum candidates; when None they are compacted here
+    (the reference's 4096 rows; use_scale_gate adds the local map's
+    viewing gates, matching.frustum_candidates)."""
+    if cand is None:
+        cand = matching.frustum_candidates(
+            pts, T_seed, K, image_hw, 4096, scale_factor=scale_factor,
+            n_levels=n_levels, use_scale_gate=use_scale_gate,
+        )
     prob, aux = projection_problem(
         pts, T_seed, feats, K, radius, image_hw, cand,
         scale_factor=scale_factor, bank_stats=bank_stats, plane_obs=plane_obs,
@@ -240,7 +251,8 @@ def track_projection(
 
 
 def descriptor_problem(
-    pts: dict, feats: dict, kf_angles: torch.Tensor, plane_obs: PlaneObs | None = None
+    pts: dict, feats: dict, kf_angles: torch.Tensor, plane_obs: PlaneObs | None = None,
+    line_obs: LineObs | None = None,
 ) -> tuple[lm.PoseProblem, torch.Tensor, torch.Tensor]:
     """Pure-descriptor matching -> PoseProblem (no solve): SearchByBoW
     semantics (NN ratio 0.7, TH_LOW, rotation-histogram filter) minus the
@@ -251,4 +263,44 @@ def descriptor_problem(
     )
     ok = matching.rotation_consistency_mask(kf_angles, feats["angle"].gather(-1, idx.long()), ok)
     ok = matching.resolve_one_to_one(idx, dist, ok, feats["desc"].shape[-2])
-    return build_point_problem(pts["pos"], idx, ok, feats, plane_obs), idx, ok
+    return build_point_problem(pts["pos"], idx, ok, feats, plane_obs, line_obs), idx, ok
+
+
+def track_descriptors(
+    pts: dict,
+    T_seed: torch.Tensor,
+    feats: dict,
+    kf_angles: torch.Tensor,
+    K: torch.Tensor,
+    bf,
+    params: lm.SolveParams | None = None,
+    plane_obs: PlaneObs | None = None,
+    line_obs: LineObs | None = None,
+    translation_only: bool = False,
+    n_rounds: int = 4,
+    n_iters: int = 10,
+    gauss_newton: bool = False,
+    use_planes: bool = False,
+    use_lines: bool = False,
+) -> dict:
+    """SearchByBoW-style descriptor matching of each stream's bank (B, N,
+    ...) against its frame, and the solve from T_seed (B, 4, 4)
+    (TrackReferenceKeyFrame; with translation_only the Manhattan
+    decoupled TranslationEstimation, Tracking.cc:846-944).  The bank rows
+    are the problem's point rows: kp_idx, matched and pt_inlier are per
+    bank row."""
+    prob, idx, ok = descriptor_problem(pts, feats, kf_angles, plane_obs, line_obs)
+    out = lm.solve_pose(
+        prob, T_seed, K, bf, params, translation_only=translation_only,
+        n_rounds=n_rounds, n_iters=n_iters, gauss_newton=gauss_newton,
+        use_planes=use_planes, use_lines=use_lines,
+    )
+    pt_inlier = out["inlier_pt"]
+    return {
+        "T": out["T"],
+        "kp_idx": idx,
+        "matched": ok,
+        "pt_inlier": pt_inlier,
+        "n_matches": ok.sum(-1),
+        "n_pt_inliers": pt_inlier.sum(-1),
+    }

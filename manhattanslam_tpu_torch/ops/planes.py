@@ -13,8 +13,9 @@ Every function takes one frame or B streams with a leading stream axis;
 reductions, scatters and orderings run per stream.  Orderings are the
 reference's: ``jax.lax.top_k`` puts the lower index first among equal
 values, so the port sorts stably; ``argmin``/``argmax`` take the first.
-The host AHC merge (``merge_blocks``) serves only the modular tracker and
-is not here.
+``extract_planes`` is the modular tracker's host wrapper of the device
+path; the reference's exact host AHC merge (``method="ahc"``,
+``merge_blocks``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from manhattanslam_tpu_torch import resolve_device
 from manhattanslam_tpu_torch.ops import eig33
 
 BLOCK = 10  # AHCPlaneFitter windowWidth/Height
@@ -410,3 +412,53 @@ def extract_planes_device(
     }
     return {k: v[0] for k, v in res.items()} if single else res
 
+
+
+def extract_planes(
+    depth,
+    K,
+    max_planes: int,
+    max_points: int,
+    min_support_frac: float = 0.04,
+    dist_th: float = 0.04,
+    stride: int = 2,
+    method: str = "device",
+    device=None,
+) -> dict:
+    """Host wrapper of the frame-plane extraction (Frame::ExtractPlanes,
+    the reference's ``extract_planes``): ``extract_planes_device`` on
+    depth's own device when it is a tensor, else on `device` (CUDA unless
+    the caller asks for another, ``resolve_device``), then ONE pull of
+    the coefficients, supports, flags, counts and clouds.  Returns numpy
+    coeffs (P, 4), cloud (P, M, 3), n_pts, n_support, valid (P,), and the
+    half-resolution membership (h, w) int32, which stays on the device
+    (the surfel mapper's plane mask)."""
+    if method != "device":
+        raise NotImplementedError(
+            f"extract_planes(method={method!r}): the exact host AHC merge (the reference's "
+            "merge_blocks and native/ahc_merge.cpp) is not ported yet; ROADMAP.md Queue 1 "
+            "lists it as the item before persistence and the viewer")
+    if not isinstance(depth, torch.Tensor):
+        depth = torch.from_numpy(np.asarray(depth, np.float32)).to(resolve_device(device))
+    dev = depth.device
+    K_t = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+    h, w = depth.shape[0] // stride, depth.shape[1] // stride
+    min_support = int(min_support_frac * h * w)
+    out = extract_planes_device(
+        depth, K_t, max_planes, max_points, (h // BLOCK, w // BLOCK), float(min_support),
+        float(np.float32(dist_th)), stride)
+    # one pull: coeffs (4), n_support, valid, n_pts, then the cloud
+    P, M = out["cloud"].shape[:2]
+    packed = torch.cat([
+        out["coeffs"],
+        torch.stack([out["n_support"], out["valid"], out["n_pts"]], 1).to(torch.float32),
+        out["cloud"].reshape(P, M * 3),
+    ], 1).cpu().numpy()
+    return {
+        "coeffs": packed[:, :4].copy(),
+        "cloud": packed[:, 7:].reshape(P, M, 3).copy(),
+        "n_pts": packed[:, 6].astype(np.int32),
+        "n_support": packed[:, 4].astype(np.int32),
+        "valid": packed[:, 5] > 0.5,
+        "membership": out["membership"],
+    }

@@ -312,3 +312,39 @@ class SlamMap:
         if key not in self.manhattan_triples:
             self.manhattan_triples[key] = kf_id
             self.kf_not_erase.add(kf_id)
+
+    def get_manhattan_pair(self, p1: int, p2: int):
+        return self.manhattan_pairs.get(self._key(p1, p2))
+
+    def get_manhattan_triple(self, p1: int, p2: int, p3: int):
+        return self.manhattan_triples.get(self._key(p1, p2, p3))
+
+    # ------------------------------------------------------------ local map
+    def local_map_view(self, anchor_kf_ids: np.ndarray) -> dict:
+        """Fixed-capacity arrays of the live points the given keyframes
+        observe, in id order (UpdateLocalPoints, Tracking.cc:1754-1907):
+        the modular tracker's local map."""
+        cap = self.cfg.caps.max_local_points
+        ids = self.kf_mp_idx[anchor_kf_ids]
+        ids = np.unique(ids[ids >= 0])
+        ids = ids[self.mp_valid[ids]][:cap]
+        n = len(ids)
+        out = {
+            "ids": np.full(cap, -1, np.int32),
+            "pos": np.zeros((cap, 3), np.float32),
+            "desc": np.zeros((cap, 8), np.uint32),
+            "normal": np.zeros((cap, 3), np.float32),
+            "min_dist": np.zeros(cap, np.float32),
+            "max_dist": np.full(cap, 1e9, np.float32),
+            "level": np.zeros(cap, np.int32),
+            "valid": np.zeros(cap, bool),
+        }
+        out["ids"][:n] = ids
+        out["pos"][:n] = self.mp_pos[ids]
+        out["desc"][:n] = self.mp_desc[ids]
+        out["normal"][:n] = self.mp_normal[ids]
+        out["min_dist"][:n] = self.mp_min_dist[ids]
+        out["max_dist"][:n] = self.mp_max_dist[ids]
+        out["level"][:n] = self.mp_level[ids]
+        out["valid"][:n] = True
+        return out

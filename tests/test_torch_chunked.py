@@ -64,7 +64,7 @@ def corner(small_cfg):
 def chunked(small_cfg, corner):
     """The port's System(chunk=4) over the 13 corner frames, planes and
     lines on (the defaults), then shut down."""
-    system = _run(System(port_cfg(small_cfg), chunk=4, device="cpu"), corner)
+    system = _run(System(port_cfg(small_cfg), fast=True, enable_surfels=False, chunk=4, device="cpu"), corner)
     system.shutdown()
     return system
 
@@ -181,7 +181,7 @@ def test_chunked_builds_map(chunked):
 
 def test_chunked_flush_partial(small_cfg, corner):
     """A partial trailing chunk is flushed and recorded."""
-    system = _run(System(port_cfg(small_cfg), chunk=4, device="cpu"), corner, 6)
+    system = _run(System(port_cfg(small_cfg), fast=True, enable_surfels=False, chunk=4, device="cpu"), corner, 6)
     assert len(system.tracker.records) == 5
     system.shutdown()
     assert len(system.tracker.records) == 6
@@ -189,7 +189,8 @@ def test_chunked_flush_partial(small_cfg, corner):
 
 def test_chunked_pipelined_bench_config(small_cfg, corner):
     """bench.py's configuration (pipeline and chunks) through flush()."""
-    system = _run(System(port_cfg(small_cfg), pipeline=True, chunk=4, device="cpu"), corner)
+    system = _run(System(port_cfg(small_cfg), fast=True, enable_surfels=False, pipeline=True, chunk=4,
+                          device="cpu"), corner)
     assert system.tracker.pipeline_depth == 2
     system.shutdown()
     recs = system.tracker.records
@@ -207,8 +208,8 @@ def test_chunked_midchunk_loss_recovery(small_cfg, corner):
     """A loss inside a chunk followed by a relocalization: the chunk's
     later frames run again from the reset carry, so recovery costs the lost
     frame only, and their poses are right (tests/test_chunked.py)."""
-    system = System(port_cfg(small_cfg), enable_planes=False, enable_lines=False, chunk=4,
-                    device="cpu")
+    system = System(port_cfg(small_cfg), fast=True, enable_planes=False, enable_lines=False,
+                    enable_surfels=False, chunk=4, device="cpu")
     _run(system, corner, 9)  # 1 init + 2 chunks
     tr, m = system.tracker, system.map
     while m.n_kf <= 5:  # no auto reset (Tracking.cc:517-523)
@@ -246,7 +247,8 @@ def test_reset_keeps_the_pipeline(small_cfg):
     """tests/test_e2e_tracking.py:118-135 on the port: a reset with the
     pipeline at chunk 1 keeps the flag and starts a new map."""
     seq = SyntheticSequence(n_frames=12, cam=small_cfg.camera)
-    system = System(port_cfg(small_cfg), pipeline=True, device="cpu")
+    system = System(port_cfg(small_cfg), fast=True, enable_surfels=False, pipeline=True,
+                    device="cpu")
     _run(system, seq, 3)
     system.reset()
     assert system.tracker.pipeline is True and system.tracker.chunk == 1

@@ -21,7 +21,7 @@ from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
 from manhattanslam_tpu_torch.io import trajectory as traj_io
-from manhattanslam_tpu_torch.ops import fast, image, kernel_build, lines, orb, planes
+from manhattanslam_tpu_torch.ops import fast, image, kernel_build, lines, orb, planes, surfels
 from manhattanslam_tpu_torch.parallel import mesh, replay
 from manhattanslam_tpu_torch.system import System
 
@@ -363,8 +363,9 @@ def test_system_on_cuda_matches_cpu(cuda):
     float64 instead of float32 moves frame 1 by 7.3 mm."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera)
-    gpu = System(cfg, enable_planes=False, enable_lines=False)
-    cpu = System(cfg, enable_planes=False, enable_lines=False, device="cpu")
+    gpu = System(cfg, fast=True, enable_planes=False, enable_lines=False, enable_surfels=False)
+    cpu = System(cfg, fast=True, enable_planes=False, enable_lines=False, enable_surfels=False,
+                 device="cpu")
     for i in range(12):
         ts, gray, depth = seq.frame(i)
         a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
@@ -431,8 +432,9 @@ def test_system_with_planes_on_cuda_matches_cpu(cuda):
     (the same scale-level knife edge)."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="corner")
-    gpu = System(cfg, enable_planes=True, enable_lines=False)
-    cpu = System(cfg, enable_planes=True, enable_lines=False, device="cpu")
+    gpu = System(cfg, fast=True, enable_planes=True, enable_lines=False, enable_surfels=False)
+    cpu = System(cfg, fast=True, enable_planes=True, enable_lines=False, enable_surfels=False,
+                 device="cpu")
     for i in range(12):
         ts, gray, depth = seq.frame(i)
         a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
@@ -499,8 +501,9 @@ def test_system_with_lines_on_cuda_matches_cpu(cuda):
     test_system_on_cuda_matches_cpu (the same scale-level knife edge)."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="near_corner")
-    gpu = System(cfg, enable_planes=True, enable_lines=True)
-    cpu = System(cfg, enable_planes=True, enable_lines=True, device="cpu")
+    gpu = System(cfg, fast=True, enable_planes=True, enable_lines=True, enable_surfels=False)
+    cpu = System(cfg, fast=True, enable_planes=True, enable_lines=True, enable_surfels=False,
+                 device="cpu")
     for i in range(8):
         ts, gray, depth = seq.frame(i)
         a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
@@ -521,7 +524,7 @@ def test_corridor_full_system_holds_the_reference_bars(cuda):
     least half of the tracked frames."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=30, cam=cfg.camera, view="corridor")
-    system = System(cfg, enable_planes=True, enable_lines=True)
+    system = System(cfg, fast=True, enable_planes=True, enable_lines=True, enable_surfels=False)
     n_lost = 0
     for i in range(30):
         ts, gray, depth = seq.frame(i)
@@ -545,8 +548,9 @@ def test_system_with_back_end_on_cuda_matches_cpu(cuda):
     the 1 cm RMS of test_system_on_cuda_matches_cpu."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="walk")
-    gpu = System(cfg, enable_planes=False, enable_lines=False)
-    cpu = System(cfg, enable_planes=False, enable_lines=False, device="cpu")
+    gpu = System(cfg, fast=True, enable_planes=False, enable_lines=False, enable_surfels=False)
+    cpu = System(cfg, fast=True, enable_planes=False, enable_lines=False, enable_surfels=False,
+                 device="cpu")
     for i in range(12):
         ts, gray, depth = seq.frame(i)
         a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
@@ -573,7 +577,7 @@ def test_graphed_step_equals_eager_step(cuda):
 
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="near_corner")
-    system = System(cfg)  # planes and lines on, chunk 1
+    system = System(cfg, fast=True, enable_surfels=False)  # planes and lines on, chunk 1
     for i in range(3):
         ts, gray, depth = seq.frame(i)
         assert system.track(gray, depth, ts) is not None
@@ -612,8 +616,8 @@ def test_chunked_pipelined_system_on_cuda_matches_cpu(cuda):
     trajectories within the file's 1 cm RMS."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=13, cam=cfg.camera, view="corner")
-    gpu = System(cfg, pipeline=True, chunk=4)
-    cpu = System(cfg, pipeline=True, chunk=4, device="cpu")
+    gpu = System(cfg, fast=True, enable_surfels=False, pipeline=True, chunk=4)
+    cpu = System(cfg, fast=True, enable_surfels=False, pipeline=True, chunk=4, device="cpu")
     for i in range(13):
         ts, gray, depth = seq.frame(i)
         gpu.track(gray, depth, ts)
@@ -636,7 +640,7 @@ def test_chunk_path_launches_each_kernel_once_per_frame(cuda):
 
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=13, cam=cfg.camera, view="corner")
-    system = System(cfg, chunk=4)
+    system = System(cfg, fast=True, enable_surfels=False, chunk=4)
     before, replays = _launches(), GraphedStep.replays
     for i in range(13):
         ts, gray, depth = seq.frame(i)
@@ -653,7 +657,7 @@ def test_keyframe_slot_reuse_on_cuda(cuda):
     step tracks the next frame against it."""
     cfg = _small_cfg()
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera)
-    system = System(cfg, enable_planes=False, enable_lines=False)
+    system = System(cfg, fast=True, enable_planes=False, enable_lines=False, enable_surfels=False)
     for i in range(4):
         ts, gray, depth = seq.frame(i)
         assert system.track(gray, depth, ts) is not None
@@ -675,3 +679,104 @@ def test_keyframe_slot_reuse_on_cuda(cuda):
     assert tr.step.graph is not None
     ts, gray, depth = seq.frame(6)
     assert system.track(gray, depth, ts) is not None
+
+
+def _surfel_frame(cfg, i):
+    ts, gray, depth = SyntheticSequence(n_frames=10, cam=cfg.camera, view="corner").frame(i)
+    return torch.from_numpy(gray.astype(np.float32)), torch.from_numpy(depth.astype(np.float32))
+
+
+def test_superpixels_on_cuda_deterministic_and_match_cpu(cuda):
+    """superpixels twice on the card: equal outputs (the per-superpixel
+    sums run in a fixed order, no atomics); against the CPU: labels equal
+    on >= 99.5% of the pixels, and where a superpixel has the same members
+    its mean and z within 1e-4 m and its normal within 1 - |dot| <= 2e-5,
+    but for at most one superpixel a frame, within 1 cm and 0.1 rad (a
+    segment whose trimmed refits keep members by hard residual
+    thresholds; tests/test_torch_surfels.py)."""
+    cfg = _small_cfg()
+    K = torch.tensor(np.asarray(cfg.camera.K, np.float32))
+    for i in (0, 6):
+        gray, depth = _surfel_frame(cfg, i)
+        mask = torch.zeros(gray.shape, dtype=torch.bool)
+        a = surfels.superpixels(gray.to(cuda), depth.to(cuda), mask.to(cuda), K.to(cuda))
+        b = surfels.superpixels(gray.to(cuda), depth.to(cuda), mask.to(cuda), K.to(cuda))
+        assert all(torch.equal(a[k], b[k]) for k in a)
+        c = surfels.superpixels(gray, depth, mask, K)
+        a = {k: v.cpu().numpy() for k, v in a.items()}
+        c = {k: v.numpy() for k, v in c.items()}
+        assert (a["labels"] == c["labels"]).mean() >= 0.995
+        S = c["mean"].shape[0]
+        diff = a["labels"] != c["labels"]
+        touched = np.zeros(S + 1, bool)
+        touched[np.where(diff, a["labels"], S)] = True
+        touched[np.where(diff, c["labels"], S)] = True
+        same = np.nonzero(~touched[:S] & (c["n_pix"] > 0))[0]
+        np.testing.assert_array_equal(a["valid"][same], c["valid"][same])
+        dots = np.abs((a["normal"][same] * c["normal"][same]).sum(-1))
+        off = ((np.abs(a["mean"][same] - c["mean"][same]).max(-1) > 1e-4)
+               | (np.abs(a["z"][same] - c["z"][same]) > 1e-4) | (dots < 1 - 2e-5))
+        assert off.sum() <= 1
+        assert (np.abs(a["mean"][same] - c["mean"][same]).max() < 0.01
+                and np.arccos(np.clip(dots, 0, 1)).max() < 0.1)
+
+
+def test_surfel_fusion_on_cuda_matches_cpu(cuda):
+    """fuse_surfels and add_new_surfels on the card and on the CPU, given
+    the same superpixels and state (frame 0's surfels, then frame 6 fused
+    at its ground-truth pose): flags and counts equal, floats within
+    1e-5, the state written in place (no tensor replaced)."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=10, cam=cfg.camera, view="corner")
+    K = torch.tensor(np.asarray(cfg.camera.K, np.float32))
+    H, W = cfg.camera.height, cfg.camera.width
+    states = {"cpu": surfels.empty_state(4096, "cpu"), "cuda": surfels.empty_state(4096, cuda)}
+    ptrs = [v.data_ptr() for v in states["cuda"].values()]
+    for kf, i in enumerate((0, 6)):
+        gray, depth = _surfel_frame(cfg, i)
+        sp = surfels.superpixels(gray, depth, torch.zeros(gray.shape, dtype=torch.bool), K)
+        T_cw = (np.linalg.inv(seq.poses[i]) @ seq.poses[0]).astype(np.float32)
+        T_wc = torch.from_numpy(np.linalg.inv(T_cw))
+        T_cw = torch.from_numpy(T_cw)
+        for name, dev in (("cpu", torch.device("cpu")), ("cuda", cuda)):
+            s = states[name]
+            sp_d = {k: v.to(dev) for k, v in sp.items()}
+            fused = surfels.fuse_surfels(s, sp_d, T_cw.to(dev), T_wc.to(dev), K.to(dev), kf, H, W)
+            surfels.add_new_surfels(s, sp_d, fused, T_wc.to(dev), kf)
+        for k, v in states["cpu"].items():
+            g = states["cuda"][k].cpu()
+            if v.dtype.is_floating_point:
+                assert (g - v).abs().max() <= 1e-5, k
+            else:
+                assert torch.equal(g, v), k
+    assert int(states["cpu"]["valid"].sum()) > 100
+    assert int(states["cpu"]["n_updates"].max()) >= 2  # frame 6 fused into frame 0's surfels
+    assert [v.data_ptr() for v in states["cuda"].values()] == ptrs
+
+
+def test_modular_system_on_cuda_holds_the_e2e_bars(cuda, tmp_path):
+    """The modular tracker (System's default) on the card with
+    tests/test_e2e_tracking.py's traffic and flags: all 10 frames tracked,
+    ATE < 0.05 m, unit-norm keyframe quaternions, > 100 map points; then
+    the default flags (planes, lines, surfels) on the corner view: all
+    tracked and surfels exported."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=10, cam=cfg.camera)
+    system = System(cfg, enable_planes=False, enable_lines=False, enable_surfels=False)
+    for i in range(10):
+        ts, gray, depth = seq.frame(i)
+        assert system.track(gray, depth, ts) is not None, f"frame {i}"
+    pos = np.array([r[1] for r in system.tracker.trajectory_rows()])
+    gt = seq.gt_rows()
+    ts_all = np.array([r[0] for r in gt])
+    assert traj_io.ate_rmse((ts_all, pos), (ts_all, np.array([r[1] for r in gt]))) < 0.05
+    q = np.array([r[2] for r in system.tracker.keyframe_rows()])
+    np.testing.assert_allclose(np.linalg.norm(q, axis=1), 1, atol=1e-5)
+    assert system.map.mp_valid.sum() > 100
+    corner = SyntheticSequence(n_frames=10, cam=cfg.camera, view="corner")
+    full = System(cfg)
+    for i in range(10):
+        ts, gray, depth = corner.frame(i)
+        assert full.track(gray, depth, ts) is not None, f"corner frame {i}"
+    full.shutdown()
+    assert len(full.surfel_mapper.export_arrays()["pos"]) > 200

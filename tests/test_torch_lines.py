@@ -365,7 +365,8 @@ def test_solve_pose_with_lines_matches_reference():
 
 def test_system_with_lines_holds_the_reference_line_bar(small_cfg):
     seq = SyntheticSequence(n_frames=6, cam=port_cfg(small_cfg).camera, view="near_corner")
-    system = System(port_cfg(small_cfg), enable_planes=True, enable_lines=True, device="cpu")
+    system = System(port_cfg(small_cfg), fast=True, enable_planes=True, enable_lines=True,
+                    enable_surfels=False, device="cpu")
     poses = [system.track(g, d, ts) for ts, g, d in (seq.frame(i) for i in range(6))]
     assert all(p is not None for p in poses)
     m = system.map

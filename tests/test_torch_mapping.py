@@ -89,7 +89,8 @@ def jax_map(cfg, tables: dict) -> JaxSlamMap:
 def mapped(small_cfg):
     pcfg = port_cfg(small_cfg)
     seq = SyntheticSequence(n_frames=N_WALK, cam=small_cfg.camera, view="walk")
-    system = System(pcfg, enable_planes=True, enable_lines=True, device="cpu")
+    system = System(pcfg, fast=True, enable_planes=True, enable_lines=True, enable_surfels=False,
+                    device="cpu")
     snaps = []
     process = system.local_mapper.process_keyframe
 

@@ -187,7 +187,8 @@ def milestone(small_cfg):
     seq = SyntheticSequence(n_frames=12, cam=small_cfg.camera)
     ref = JaxSystem(small_cfg, enable_planes=False, enable_lines=False, enable_surfels=False,
                     fast=True)
-    port = System(port_cfg(small_cfg), enable_planes=False, enable_lines=False, device="cpu")
+    port = System(port_cfg(small_cfg), fast=True, enable_planes=False, enable_lines=False,
+                  enable_surfels=False, device="cpu")
     poses_ref, at_ref = forced_loss(ref, ref.tracker.reloc_module, seq, 6)
     poses, at = forced_loss(port, port.reloc_module, seq, 6)
     return seq, ref, port, poses_ref, at_ref, poses, at
@@ -257,7 +258,8 @@ def test_bow_and_candidates_like_reference(milestone, small_cfg):
 def test_convert_carries_map_and_backend_state(milestone, small_cfg):
     _, ref, _, _, _, _, _ = milestone
     pcfg = port_cfg(small_cfg)
-    system = System(pcfg, enable_planes=False, enable_lines=False, device="cpu")
+    system = System(pcfg, fast=True, enable_planes=False, enable_lines=False, enable_surfels=False,
+                    device="cpu")
     tables = convert.map_to_numpy(ref.map)
     state = convert.backend_state_to_numpy(ref.local_mapper, ref.tracker.reloc_module, ref.tracker)
     assert state["recent_points"] and state["records"]
@@ -281,8 +283,8 @@ def test_convert_carries_map_and_backend_state(milestone, small_cfg):
 def test_port_relocalizes_a_frame_out_of_reach(small_cfg):
     n = 60
     seq = SyntheticSequence(n_frames=n, cam=small_cfg.camera, view="walk")
-    system = System(port_cfg(small_cfg), enable_planes=False, enable_lines=False,
-                    device="cpu")
+    system = System(port_cfg(small_cfg), fast=True, enable_planes=False, enable_lines=False,
+                    enable_surfels=False, device="cpu")
     poses, at = forced_loss(system, system.reloc_module, seq, n)
     assert system.map.n_kf >= 6  # no clone was needed
     assert at == n + 1 and system.tracker.last_reloc_frame_id == at
@@ -305,8 +307,8 @@ def test_auto_reset_on_early_loss(small_cfg):
     """tests/test_reloc.py:115 on the port: a loss with <= 5 keyframes
     resets the system, which re-initializes on the next good frame."""
     seq = SyntheticSequence(n_frames=12, cam=small_cfg.camera)
-    system = System(port_cfg(small_cfg), enable_planes=False, enable_lines=False,
-                    device="cpu")
+    system = System(port_cfg(small_cfg), fast=True, enable_planes=False, enable_lines=False,
+                    enable_surfels=False, device="cpu")
     for i in range(4):
         t, gray, depth = seq.frame(i)
         system.track(gray, depth, t)
@@ -329,8 +331,8 @@ def test_localization_mode_adds_no_keyframe(small_cfg):
     mode it makes none, every frame still tracked, and a loss asks for no
     reset."""
     seq = SyntheticSequence(n_frames=40, cam=small_cfg.camera, view="walk")
-    system = System(port_cfg(small_cfg), enable_planes=False, enable_lines=False,
-                    device="cpu")
+    system = System(port_cfg(small_cfg), fast=True, enable_planes=False, enable_lines=False,
+                    enable_surfels=False, device="cpu")
     t, gray, depth = seq.frame(0)
     system.track(gray, depth, t)
     system.activate_localization_mode()

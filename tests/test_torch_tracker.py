@@ -157,18 +157,17 @@ def test_init_carry_matches_reference_layout(small_cfg):
 
 
 @pytest.mark.parametrize(
-    "kwargs, ported",
-    [(dict(fast=False), False), (dict(chunk=4), True), (dict(pipeline=True), True),
-     (dict(enable_planes=True, chunk=4), True), (dict(enable_lines=True, chunk=4), True),
-     (dict(enable_surfels=True), False)],
+    "kwargs",
+    [dict(fast=False), dict(fast=True, enable_surfels=False, chunk=4),
+     dict(fast=True, enable_surfels=False, pipeline=True),
+     dict(fast=True, enable_surfels=False, enable_planes=True, chunk=4),
+     dict(fast=True, enable_surfels=False, enable_lines=True, chunk=4),
+     dict(fast=True, enable_surfels=True)],
 )
-def test_system_raises_for_later_slices(small_cfg, kwargs, ported):
-    """Chunks and the pipeline are ported: those flag sets construct and
-    track a frame; the modular tracker and surfels still raise."""
-    if not ported:
-        with pytest.raises(NotImplementedError):
-            System(port_cfg(small_cfg), device="cpu", **kwargs)
-        return
+def test_system_raises_for_later_slices(small_cfg, kwargs):
+    """Every flag set is ported now (chunks and the pipeline, the modular
+    tracker and surfels): none raises, each constructs and tracks a
+    frame."""
     system = System(port_cfg(small_cfg), device="cpu", **kwargs)
     ts, gray, depth = SyntheticSequence(n_frames=1, cam=small_cfg.camera).frame(0)
     assert system.track(gray, depth, ts) is not None
@@ -180,7 +179,8 @@ def test_system_with_planes_tracks_the_corner_view(small_cfg):
     tracked, the keyframe's planes become map planes with a Manhattan pair,
     and the Manhattan pose carries frames."""
     seq = SyntheticSequence(n_frames=4, cam=small_cfg.camera, view="corner")
-    system = System(port_cfg(small_cfg), enable_planes=True, enable_lines=False, device="cpu")
+    system = System(port_cfg(small_cfg), fast=True, enable_planes=True, enable_lines=False,
+                    enable_surfels=False, device="cpu")
     for i in range(4):
         ts, gray, depth = seq.frame(i)
         assert system.track(gray, depth, ts) is not None
@@ -198,7 +198,8 @@ def test_system_needs_cuda_unless_cpu_is_asked(small_cfg):
 def test_system_tracks_and_saves(small_cfg, tmp_path):
     """System on the CPU: frames tracked, TUM files with 8 fields a line."""
     seq = SyntheticSequence(n_frames=4, cam=small_cfg.camera)
-    system = System(port_cfg(small_cfg), enable_planes=False, enable_lines=False, device="cpu")
+    system = System(port_cfg(small_cfg), fast=True, enable_planes=False, enable_lines=False,
+                    enable_surfels=False, device="cpu")
     for i in range(4):
         ts, gray, depth = seq.frame(i)
         assert system.track(gray, depth, ts) is not None

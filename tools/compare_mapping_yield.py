@@ -95,7 +95,7 @@ def main() -> int:
     path = os.path.join(ROOT, "configs", "TUM1.yaml")
     jcfg, pcfg = jax_load_config(path), load_config(path)
     seq = SyntheticSequence(n_frames=120, cam=jcfg.camera, view="walk")
-    run("port", System(pcfg, device="cpu"), seq, args.frames)
+    run("port", System(pcfg, fast=True, enable_surfels=False, device="cpu"), seq, args.frames)
     run("reference", JaxSystem(jcfg, fast=True, enable_surfels=False), seq, args.frames)
     return 0
 

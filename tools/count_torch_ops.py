@@ -62,7 +62,8 @@ def main() -> int:
     seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="corner")
     frames = [seq.frame(i) for i in range(5)]
     for planes, lines_on in ((False, False), (True, False), (True, True)):
-        system = System(cfg, enable_planes=planes, enable_lines=lines_on, device="cpu")
+        system = System(cfg, fast=True, enable_planes=planes, enable_lines=lines_on,
+                        enable_surfels=False, device="cpu")
         for ts, gray, depth in frames[:3]:
             system.track(gray, depth, ts)
         it = iter(frames[3:])
@@ -114,7 +115,8 @@ def main() -> int:
 def backend_ops(cfg) -> None:
     """aten operators of each keyframe event's back end and of each
     relocalize call on the relocalization traffic."""
-    system = System(cfg, enable_planes=False, enable_lines=False, device="cpu")
+    system = System(cfg, fast=True, enable_planes=False, enable_lines=False, enable_surfels=False,
+                    device="cpu")
     counts = {"keyframe event": [], "relocalize": []}
 
     def counted(name, fn):

@@ -102,7 +102,7 @@ def _summary(events) -> str:
 
 def backend(cfg) -> None:
     """Profile each keyframe event and each relocalization (--backend)."""
-    system = System(cfg, enable_planes=True, enable_lines=True)
+    system = System(cfg, fast=True, enable_planes=True, enable_lines=True, enable_surfels=False)
     rows = []
 
     def profiled(name, fn):
@@ -218,7 +218,8 @@ def main() -> int:
     else:
         seq = SyntheticSequence(n_frames=n, cam=cfg.camera, view=view)
         frames = [seq.frame(i) for i in range(n)]
-        system = System(cfg, enable_planes=args.planes, enable_lines=args.lines)
+        system = System(cfg, fast=True, enable_planes=args.planes, enable_lines=args.lines,
+                        enable_surfels=False)
 
         def run(i):
             ts, gray, depth = frames[i]
