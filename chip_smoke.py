@@ -5,9 +5,10 @@ Usage: python3 chip_smoke.py   (from the root of a checkout; needs one GPU)
 
 Phases, each printing one line with its elapsed seconds:
 
-1. build   - compile the CUDA kernels in manhattanslam_tpu_torch/csrc (one
-             nvcc per source, in parallel, into build/torch_kernels/) and
-             print the card's name and power limit from nvidia-smi.
+1. build   - compile the CUDA kernels and the host C++ AHC merge in
+             manhattanslam_tpu_torch/csrc (one nvcc or g++ per source, in
+             parallel, into build/torch_kernels/) and print the card's name
+             and power limit from nvidia-smi.
 2. kernels - at the shapes of all 8 pyramid levels of a TUM1 frame (640x480,
              1000 ORB features), hold each kernel against its plain PyTorch
              version on the card, launched as the extractor launches it
@@ -195,6 +196,35 @@ counts go up by the captured launches on every replay.
              place equals a full upload of the map, and the graphed step
              tracks the next frame against it.
 
+10. persist - 90 frames of the 640x480 "walk" written as a TUM-format
+             sequence (io/png.py: RGB from the gray frame, 16-bit depth at
+             DepthMapFactor, an associations file) and read back with
+             TumSequence: RGB equal, depth within one quantum.  The runner,
+             run_slam.main, over it with the reference's defaults (fused,
+             chunk 1, planes, lines, surfels): 90/90 tracked, ATE below
+             0.05 m against the renderer, 8 fields on every trajectory
+             line, each kernel once per frame; median and largest ms per
+             frame.  System(cfg, fast=True, use_viewer=True) over the same
+             frames, saved; a fresh System loads it (every table and
+             scalar equal), then in localization mode with its state
+             forced to LOST relocalizes one of 3 frames from the frame of
+             its best-covisible keyframe on, and tracks the next 10 from
+             the graphed step (ATE below 0.05 m; the largest distance to
+             the first System's poses printed).  The exact
+             AHC merge at 640x480 on a corner and a near_corner frame: on
+             the card; the C++ and Python merges on the same pulled stats
+             (the same partition, both timed); the card's planes against
+             the CPU's (equal counts, AHC_NORMAL_TOL / AHC_D_TOL); the
+             device method's and AHC's plane counts.  The mesh entries:
+             make_mesh() is the one card; build_batched_track_step at B = 8
+             (a bank of frame 0's back-projected keypoints, each stream
+             seeded at the ground-truth pose of the frame before) against
+             B = 1 per stream within 1e-3 m / 1e-3 rad with equal inliers
+             above the tracker's acceptance, each kernel once per step (ms
+             per step, frames/s, peak memory); sharded_hamming_argmin on a
+             4096-entry bank and 1000 queries over meshes of one and four
+             entries of the card, equal to the single-bank argmin.
+
 Any failure raises and the script exits nonzero.  It writes only into a
 temporary directory and the kernel build directory, and starts no thread.
 The last two lines are the kernels JSON (one row per TPU kernel) and
@@ -225,7 +255,7 @@ from manhattanslam_tpu_torch.io import trajectory as traj_io
 from manhattanslam_tpu_torch.mapping.surfel_mapping import SurfelMapper, plane_mask
 from manhattanslam_tpu_torch.ops import fast as fast_ops
 from manhattanslam_tpu_torch.ops import image as image_ops
-from manhattanslam_tpu_torch.ops import kernel_build
+from manhattanslam_tpu_torch.ops import kernel_build, matching
 from manhattanslam_tpu_torch.ops import orb as orb_ops
 from manhattanslam_tpu_torch.ops import surfels as surf_ops
 from manhattanslam_tpu_torch.parallel import mesh, replay
@@ -407,7 +437,8 @@ def phase_build() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(smi)
-    log(f"phase build: {len(kernel_build.SIGNATURES)} kernels built, "
+    log(f"phase build: {len(kernel_build.SIGNATURES)} kernels and "
+        f"{len(kernel_build.HOST_SIGNATURES)} host C++ library built, "
         f"{time.perf_counter() - t0:.1f} s")
     return smi
 
@@ -1657,6 +1688,365 @@ def phase_modular(tmp: str, smi: str) -> dict:
     return launches
 
 
+N_PERSIST = 90  # walk frames written as a TUM sequence in the persist phase
+PERSIST_LOST = 3  # lost frames, one of which the loaded map must relocalize
+PERSIST_TRACK = 10  # frames then tracked from the graphed step
+# card against CPU AHC planes: the partition of each card's own stats
+# (float32 sums in another order) may differ only where a merge sits on a
+# threshold, so the gate holds the valid counts equal and each plane's
+# normal within AHC_NORMAL_TOL and offset within AHC_D_TOL * |d|: the
+# bar tests/test_torch_cuda.py holds the device method's plane_stage2 to,
+# card against CPU, at 640x480
+AHC_NORMAL_TOL = 1e-4
+AHC_D_TOL = 1e-4
+MESH_B = 8  # build_batched_track_step streams on the one-card mesh
+# the fused step's acceptance: at least 7 point inliers (device_tracker.py
+# tracked_ok, the reference's device_tracker.py:887)
+TRACK_MIN_INLIERS = 7
+MESH_STEPS = 6  # the first not timed
+ARGMIN_BANK, ARGMIN_QUERIES = 4096, 1000
+
+
+def _write_tum(cfg, seq, root: str) -> list:
+    """N_PERSIST frames of `seq` as a TUM-format sequence under root (RGB
+    from the gray frame, 16-bit depth at DepthMapFactor, associations);
+    returns what was written: (timestamp, rgb, float depth) per frame."""
+    from manhattanslam_tpu_torch.io.png import write_png
+
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    lines, written = ["# timestamp rgb timestamp depth"], []
+    for i in range(N_PERSIST):
+        ts, gray, depth = seq.frame(i)
+        g8 = np.clip(np.round(gray), 0, 255).astype(np.uint8)
+        rgb = np.stack([g8, g8, g8], -1)
+        d16 = np.clip(np.round(depth * cfg.depth_map_factor), 0, 65535).astype(np.uint16)
+        write_png(os.path.join(root, "rgb", f"{i:04d}.png"), rgb)
+        write_png(os.path.join(root, "depth", f"{i:04d}.png"), d16)
+        lines.append(f"{ts:.6f} rgb/{i:04d}.png {ts:.6f} depth/{i:04d}.png")
+        written.append((ts, rgb, depth))
+    with open(os.path.join(root, "associations.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return written
+
+
+def _gt_ate(seq, path_or_rows) -> float:
+    gt = seq.gt_rows()
+    return traj_io.ate_rmse(path_or_rows,
+                            (np.array([r[0] for r in gt]), np.array([r[1] for r in gt])))
+
+
+def _persist_runner(cfg, seq, root: str, dev) -> str:
+    """run_slam.main over the TUM sequence with the reference's defaults
+    (fused, chunk 1, planes, lines, surfels), writing under root."""
+    import contextlib
+    import io
+
+    from manhattanslam_tpu_torch import run_slam
+
+    track, ms = System.track, []
+
+    def timed(self, *a, **k):
+        t = time.perf_counter()
+        T = track(self, *a, **k)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        return T
+
+    prefix = os.path.join(root, "run_")
+    out = io.StringIO()
+    reset_launches()
+    System.track = timed
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = run_slam.main(["--settings", os.path.join(HERE, "configs", "TUM1.yaml"),
+                                "--sequence", root, "--associations",
+                                os.path.join(root, "associations.txt"), "--device", str(dev),
+                                "--out-prefix", prefix])
+    finally:
+        System.track = track
+    launches = read_launches()
+    report = out.getvalue().splitlines()
+    for line in report:
+        log(f"persist: runner | {line}")
+    traj = prefix + "CameraTrajectory.txt"
+    rows = [ln.split() for ln in open(traj) if ln.strip()]
+    ate = _gt_ate(seq, traj)
+    log(f"persist: runner median {statistics.median(ms[1:]):.1f} ms/frame, largest "
+        f"{max(ms[1:]):.1f} (first frame {ms[0]:.0f} ms), ATE {ate:.4f} m against the "
+        f"renderer, {len(rows)} trajectory lines, launches {launches}")
+    if rc != 0 or f"tracked: {N_PERSIST}/{N_PERSIST} frames" not in report:
+        raise RuntimeError(f"persist: the runner returned {rc} and did not track every frame")
+    if not ate < ATE_LIMIT:
+        raise RuntimeError(f"persist: the runner's ATE {ate} m is not below {ATE_LIMIT} m")
+    if len(rows) != N_PERSIST or any(len(r) != 8 for r in rows):
+        raise RuntimeError("persist: a trajectory line without 8 fields")
+    for name in ("KeyFrameTrajectory.txt", "Surfels.ply"):
+        if not os.path.exists(prefix + name):
+            raise RuntimeError(f"persist: the runner wrote no {name}")
+    _check_launches("persist runner", launches, N_PERSIST)
+    return launches
+
+
+def _persist_reload(cfg, seq, frames, root: str, dev) -> dict:
+    """A System with the viewer over the frames, saved; a fresh System
+    loads it, relocalizes a lost frame in localization mode and tracks on
+    from the graphed step.  Returns the launch counts."""
+    from manhattanslam_tpu_torch.io import map_io
+
+    reset_launches()
+    first = System(cfg, fast=True, use_viewer=True, device=dev)
+    n_kf = []
+    for ts, gray, depth in frames:
+        if first.track(gray, depth, ts) is None:
+            raise RuntimeError("persist: a frame of the viewer's System was lost")
+        n_kf.append(first.map.n_kf)
+    first.shutdown()
+    v = first.viewer
+    kp = v._res["feats"]["valid"].sum().item() if v._res is not None else 0
+    tracked_kp = int((first.tracker.last_mp_idx >= 0).sum())
+    log(f"persist: System(fast=True, use_viewer=True) over {len(frames)} frames, the viewer "
+        f"updated on each; keyframes by frame {n_kf[::10]} ... {n_kf[-1]}; the viewer holds "
+        f"the last frame's {kp} keypoints, {tracked_kp} tracked; retired slots "
+        f"{first.map.kf_free}, last keyframe {first.map.last_kf_added}")
+    path = os.path.join(root, "map.npz")
+    first.save_map(path)
+    second = System(cfg, fast=True, device=dev)
+    second.load_map(path)
+    a, b = first.map, second.map
+    bad = [k for k in map_io._ARRAYS if not np.array_equal(getattr(a, k), getattr(b, k))]
+    scal = ("n_kf", "kf_free", "last_kf_added", "manhattan_pairs", "manhattan_triples",
+            "kf_not_erase")
+    bad += [k for k in scal if getattr(a, k) != getattr(b, k)]
+    if bad:
+        raise RuntimeError(f"persist: the loaded map differs in {bad}")
+    tr, reloc = second.tracker, second.reloc_module
+    calls, relocalize = [], reloc.relocalize
+
+    def timed(feats):
+        t = time.perf_counter()
+        T = relocalize(feats)
+        calls.append((round((time.perf_counter() - t) * 1e3, 1),
+                      reloc.last_path if T is not None else None))
+        return T
+
+    reloc.relocalize = timed
+    # the kidnapped camera stands where the map is best covered: at the
+    # frame of the keyframe with the most covisibility (keyframe 0 aside,
+    # whose pose is the carry's start); away from it the relocalizer's
+    # candidates come from keyframes 40 frames off (ROADMAP Queue 3)
+    kfs = [k for k in range(1, b.n_kf) if b.kf_valid[k]]
+    kf = max(kfs, key=lambda k: (int(b.covis[k].sum()), -k))
+    at = min(int(b.kf_frame_id[kf]), len(frames) - PERSIST_LOST - PERSIST_TRACK)
+    second.activate_localization_mode()
+    tr.state, tr.frame_id = "LOST", 1000
+    back = []
+    for i in range(at, at + PERSIST_LOST):
+        ts, gray, depth = frames[i]
+        T = second.track(gray, depth, ts)
+        back.append((i, T is not None, tr.frame_id == tr.last_reloc_frame_id))
+        if T is not None:
+            break
+    log(f"persist: loaded map ({b.n_kf} keyframe slots at frames "
+        f"{b.kf_frame_id[:b.n_kf].tolist()}, {int(b.mp_valid.sum())} points); lost from keyframe "
+        f"{kf}'s frame on (frame, tracked, relocalized): {back}; relocalize calls (ms, path): "
+        f"{calls}; matched keyframe {reloc.last_kf}")
+    if not back[-1][1] or not back[-1][2]:
+        raise RuntimeError("persist: no frame among the first three relocalized on the loaded map")
+    start = back[-1][0] + 1
+    for i in range(start, start + PERSIST_TRACK):
+        ts, gray, depth = frames[i]
+        if second.track(gray, depth, ts) is None:
+            raise RuntimeError(f"persist: frame {i} lost after the relocalization; the tracker's "
+                               f"last frames (id, inliers, ok, ...) {tr.frame_log[-6:]}")
+    if dev.type == "cuda" and tr.step.graph is None:
+        raise RuntimeError("persist: the loaded System's step was not graphed")
+    rows = tr.trajectory_rows()[-PERSIST_TRACK:]
+    ate = _gt_ate(seq, (np.array([r[0] for r in rows]), np.array([r[1] for r in rows])))
+    ref = {round(r[0], 6): np.asarray(r[1]) for r in first.tracker.trajectory_rows()}
+    gap = max(float(np.linalg.norm(np.asarray(r[1]) - ref[round(r[0], 6)])) for r in rows)
+    log(f"persist: {PERSIST_TRACK} frames tracked from the graphed step after it, ATE "
+        f"{ate:.4f} m against the renderer, largest distance to the first System's poses "
+        f"{gap:.4f} m")
+    if not ate < ATE_LIMIT:
+        raise RuntimeError(f"persist: the reloaded System's ATE {ate} m is not below {ATE_LIMIT}")
+    launches = read_launches()
+    _check_launches("persist reload", launches, len(frames) + len(back) + PERSIST_TRACK)
+    return launches
+
+
+def _quantized(cfg, seq, i: int) -> np.ndarray:
+    d16 = dt.to_native(*seq.frame(i)[1:])[1]
+    return d16.astype(np.float32) * np.float32(1.0 / dt.DEPTH_QUANT)
+
+
+def _persist_ahc(cfg, dev) -> str:
+    """The exact AHC merge at 640x480 on a corner and a near_corner frame:
+    on the card, the C++ and Python merges on the same pulled stats, the
+    card's planes against the CPU's, and the device method's count."""
+    from manhattanslam_tpu_torch.ops import planes
+
+    K = np.asarray(cfg.camera.K, np.float32)
+    P, M = cfg.caps.max_planes_frame, cfg.caps.max_plane_points
+    h, w = cfg.camera.height // 2, cfg.camera.width // 2
+    grid, min_support = (h // planes.BLOCK, w // planes.BLOCK), int(0.04 * h * w)
+    out = []
+    for view in ("corner", "near_corner"):
+        depth = _quantized(cfg, SyntheticSequence(n_frames=1, cam=cfg.camera, view=view), 0)
+        d_card = torch.from_numpy(depth).to(dev)
+        card = planes.extract_planes(d_card, K, P, M, method="ahc")
+        devm = planes.extract_planes(d_card, K, P, M, method="device")
+        cpu = planes.extract_planes(depth, K, P, M, method="ahc", device="cpu")
+        _, packed = planes.plane_stage1(d_card, torch.from_numpy(K).to(dev))
+        st = planes.unpack_stats(packed.cpu().numpy())
+        t = time.perf_counter()
+        lab_cc = planes.merge_blocks(st, grid, min_support)
+        t_cc = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        lab_py = planes.merge_blocks_py(st, grid, min_support)
+        t_py = (time.perf_counter() - t) * 1e3
+        pairs = {}
+        same = all((a < 0) == (b < 0) and pairs.setdefault(a, b) == b
+                   for a, b in zip(lab_cc, lab_py)) and len(set(pairs.values())) == len(pairs)
+        if not same:
+            raise RuntimeError(f"persist ahc {view}: the C++ and Python merges partition apart")
+        nc, nh = int(card["valid"].sum()), int(cpu["valid"].sum())
+        if nc != nh:
+            raise RuntimeError(f"persist ahc {view}: {nc} planes on the card, {nh} on the CPU")
+        cc, ch = card["coeffs"][card["valid"]], cpu["coeffs"][cpu["valid"]]
+        dn = float(np.abs(cc[:, :3] - ch[:, :3]).max()) if nc else 0.0
+        dd = float((np.abs(cc[:, 3] - ch[:, 3]) / np.abs(ch[:, 3])).max()) if nc else 0.0
+        log(f"persist ahc {view}: {cfg.camera.width}x{cfg.camera.height}, device method "
+            f"{int(devm['valid'].sum())} planes, exact AHC {nc} planes on the card ({nh} on the CPU, normals within {dn:.3g}, "
+            f"offsets within {dd:.3g} of |d|); the C++ merge {t_cc:.3f} ms and the Python merge "
+            f"{t_py:.1f} ms on the host, the same partition into {len(pairs) - (-1 in pairs)} "
+            f"segments")
+        if not (dn <= AHC_NORMAL_TOL and dd <= AHC_D_TOL):
+            raise RuntimeError(f"persist ahc {view}: card planes off the CPU's by {dn} / {dd}")
+        out.append(f"{view} device {int(devm['valid'].sum())} / AHC {nc}")
+    return ", ".join(out)
+
+
+def _persist_mesh(cfg, seq, dev) -> dict:
+    """build_batched_track_step at B = MESH_B on make_mesh() against the
+    same step at B = 1 per stream, and sharded_hamming_argmin on meshes of
+    one and four entries of the card.  Returns the step's launch counts."""
+    m1 = mesh.make_mesh()
+    if m1.devices.size != torch.cuda.device_count():
+        raise RuntimeError(f"persist mesh: make_mesh() holds {m1.devices.size} devices")
+    f0 = frame.build_extractor(cfg, dev)(*(torch.from_numpy(x).to(dev) for x in (
+        np.round(seq.frame(0)[1]).astype(np.float32), _quantized(cfg, seq, 0))))
+    bank = {"pos": frame.backproject_keypoints(f0, cfg), "desc": f0["desc"],
+            "valid": f0["valid"] & (f0["depth"] > 0), "level": f0["level"]}
+    idx = list(range(1, MESH_B + 1))
+    gray = torch.from_numpy(np.stack([np.round(seq.frame(i)[1]) for i in idx]).astype(np.float32))
+    depth = torch.from_numpy(np.stack([_quantized(cfg, seq, i) for i in idx]))
+    seeds = torch.from_numpy(np.stack([np.linalg.inv(seq.poses[i - 1]) @ seq.poses[0]
+                                       for i in idx]).astype(np.float32))
+    gray, depth, seeds = gray.to(dev), depth.to(dev), seeds.to(dev)
+    banks = {k: v.expand((MESH_B,) + v.shape).contiguous() for k, v in bank.items()}
+    step = mesh.build_batched_track_step(cfg, m1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    ms, per_step = [], []
+    for _ in range(MESH_STEPS):
+        before = read_launches()
+        t = time.perf_counter()
+        out = step(gray, depth, seeds, banks)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read_launches().items()})
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    med = statistics.median(ms[1:])
+    worst_t = worst_r = 0.0
+    for s in range(MESH_B):
+        one = step(gray[s:s + 1], depth[s:s + 1], seeds[s:s + 1],
+                   {k: v[s:s + 1] for k, v in banks.items()})
+        dt_, dr_ = _pose_diff(out["T"][s].cpu().numpy(), one["T"][0].cpu().numpy())
+        worst_t, worst_r = max(worst_t, dt_), max(worst_r, dr_)
+        n_b, n_1 = int(out["n_inliers"][s]), int(one["n_inliers"][0])
+        if n_b != n_1 or n_b < TRACK_MIN_INLIERS:
+            raise RuntimeError(f"persist mesh: stream {s} has {n_b} inliers, {n_1} at B = 1 "
+                               f"(the tracker accepts >= {TRACK_MIN_INLIERS})")
+    log(f"persist mesh: make_mesh() = {m1.devices.size} device; build_batched_track_step at "
+        f"B = {MESH_B}: median {med:.2f} ms per step (first {ms[0]:.0f} ms), "
+        f"{MESH_B * 1e3 / med:.1f} frames/s, peak memory {peak:.1f} MiB, inliers per stream "
+        f"{out['n_inliers'].tolist()}, matches {out['n_matches'].tolist()}; against B = 1: "
+        f"max {worst_t:.3g} m, {worst_r:.3g} rad; launches per step {per_step[-1]}")
+    if not (worst_t < POSE_TOL_M and worst_r < POSE_TOL_RAD):
+        raise RuntimeError(f"persist mesh: B = {MESH_B} off B = 1 by {worst_t} m / {worst_r} rad")
+    for i, n in enumerate(per_step):
+        if n != launches_per_frame():
+            raise RuntimeError(f"persist mesh: step {i} launched {n}, not once per kernel")
+    rng = np.random.default_rng(5)
+    base = rng.integers(-2**31, 2**31, (16, 8), dtype=np.int64).astype(np.int32)
+
+    def draw(n):
+        d = base[rng.integers(0, len(base), n)].copy()
+        bit = rng.integers(0, 256, n)
+        d[np.arange(n), bit // 32] ^= (np.int64(1) << (bit % 32)).astype(np.uint32).view(np.int32)
+        return torch.from_numpy(d).to(dev)
+
+    q, bankd = draw(ARGMIN_QUERIES), draw(ARGMIN_BANK)
+    full = matching.hamming_matrix(q, bankd)
+    best, arg = torch.min(full, dim=1)
+    res = []
+    for entries in (1, 4):
+        idx_m, dist_m = mesh.sharded_hamming_argmin(q, bankd, mesh.make_mesh(devices=[dev] * entries))
+        ok = torch.equal(idx_m.long(), arg) and torch.equal(dist_m.float(), best)
+        res.append(f"{entries} entries {'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            raise RuntimeError(f"persist mesh: the sharded argmin over {entries} entries differs")
+    ties = float((torch.sort(full, 1).values[:, :2].diff(dim=1) == 0).float().mean())
+    log(f"persist mesh: sharded_hamming_argmin, {ARGMIN_QUERIES} queries against a "
+        f"{ARGMIN_BANK}-entry bank ({ties:.2f} of queries with a tied best): {', '.join(res)} "
+        f"to the single-bank argmin")
+    return launches
+
+
+def phase_persist(cfg, tmp: str, dev) -> tuple[dict, dict]:
+    """Data sources, the runner, persistence with the viewer, the exact AHC
+    merge and the mesh entries; returns the launch counts of the System
+    runs (the single rows) and of the batched track step (the batched)."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "tum_walk")
+    seq = SyntheticSequence(n_frames=N_PERSIST, cam=cfg.camera, view="walk")
+    written = _write_tum(cfg, seq, root)
+    t_write = time.perf_counter() - t0
+    from manhattanslam_tpu_torch.datasets.tum import TumSequence, to_gray
+
+    t = time.perf_counter()
+    tum = TumSequence(root, os.path.join(root, "associations.txt"), cfg.depth_map_factor)
+    frames, worst = [], 0.0
+    for fr, (ts, rgb, depth) in zip(tum, written):
+        if fr.timestamp != float(f"{ts:.6f}") or not np.array_equal(fr.rgb, rgb):
+            raise RuntimeError("persist: a TUM frame's timestamp or RGB differs from what was written")
+        worst = max(worst, float(np.abs(fr.depth - depth).max()))
+        frames.append((fr.timestamp, to_gray(fr.rgb, cfg.camera.rgb), fr.depth))
+    quantum = 1.0 / cfg.depth_map_factor
+    log(f"persist: {N_PERSIST} walk frames written as a TUM sequence in {t_write:.1f} s and "
+        f"read back in {time.perf_counter() - t:.1f} s: RGB equal, depth within {worst:.3g} m "
+        f"(one quantum {quantum:.3g} m)")
+    if not worst <= quantum:
+        raise RuntimeError(f"persist: depth read back {worst} m off, over one quantum")
+    t = time.perf_counter()
+    runner = _persist_runner(cfg, seq, root, dev)
+    log(f"persist: runner {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    reload = _persist_reload(cfg, seq, frames, root, dev)
+    log(f"persist: save, load, relocalize and track on {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ahc = _persist_ahc(cfg, dev)
+    log(f"persist: AHC {ahc}, {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    batched = _persist_mesh(cfg, seq, dev)
+    log(f"persist: mesh {time.perf_counter() - t:.1f} s")
+    launches = {k: runner[k] + reload[k] for k in runner}
+    log(f"phase persist: {time.perf_counter() - t0:.1f} s")
+    return launches, batched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1678,6 +2068,7 @@ def main() -> int:
         full_launches = phase_full(cfg, tmp)
         mapping_launches, system, walk = phase_mapping(cfg, tmp)
         reloc_launches = phase_reloc(cfg, system, walk)
+        persist_launches, batched_launches = phase_persist(cfg, tmp, dev)
     replay_launches = phase_replay(cfg, dev, track_ms)
     launches = {"chunk": chunk_launches, "chunk1": chunk1_launches, "chunk_walk": walk_launches,
                 "surfels": surfel_launches, "surfels_corner": surfel_corner_launches,
@@ -1685,11 +2076,12 @@ def main() -> int:
                 "track": track_launches, "planes_corner": corner_launches,
                 "planes_near_corner": near_launches, "full": full_launches,
                 "mapping": mapping_launches, "reloc": reloc_launches,
-                "replay": replay_launches}
+                "persist": persist_launches, "replay": replay_launches,
+                "batched_track": batched_launches}
     paths = {"chunk": ("chunk", "chunk1", "chunk_walk", "surfels", "surfels_corner", "modular",
                        "track", "planes_corner", "planes_near_corner", "full", "mapping",
-                       "reloc"),
-             "replay": ("replay",)}
+                       "reloc", "persist"),
+             "replay": ("replay", "batched_track")}
     rows = []
     for name, k in KERNELS.items():
         st = stats[name]

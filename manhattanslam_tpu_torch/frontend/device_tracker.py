@@ -210,6 +210,22 @@ def diff_host_views(shadow: dict, host: dict) -> list[dict]:
     return [upd]
 
 
+def noop_view_update(host: dict) -> dict:
+    """An update that changes nothing: no rows, no registry entries, the
+    full keys as `host` holds them (``apply_view_update([...])`` of it
+    leaves a view of `host` as it was)."""
+    upd = {}
+    for g, keys in _VIEW_GROUPS.items():
+        upd[g + "_idx"] = np.zeros(0, np.int64)
+        for k in keys:
+            upd[k] = host[k][:0]
+    upd["reg3_idx"] = np.zeros(0, np.int64)
+    upd["reg3_val"] = host["reg3"].ravel()[:0]
+    for k in _VIEW_FULL_KEYS:
+        upd[k] = host[k]
+    return upd
+
+
 def apply_view_update(view: dict, updates: list[dict]) -> dict:
     """Scatter the changed rows and registry entries into the device view
     and copy the full keys over, all IN PLACE (the view's storage is
@@ -1066,7 +1082,9 @@ def build_chunk_step(cfg: SlamConfig, device, enable_planes: bool = False,
     go into row i of `out` (an output slot with a leading chunk axis,
     allocated on first use when None); ``results["chunk_flat"]`` is the
     chunk's one pull.  `frame_step` is the frame step to run (a
-    ``GraphedStep`` on the card), ``build_frame_step``'s by default."""
+    ``GraphedStep`` on the card), ``build_frame_step``'s by default.
+    ``chunk.layouts`` holds the frame result's ``flat_layouts`` after the
+    first call."""
     step = frame_step or build_frame_step(cfg, device, enable_planes, enable_lines)
 
     def chunk(gray8, d16, carry, view, out=None):
@@ -1078,7 +1096,10 @@ def build_chunk_step(cfg: SlamConfig, device, enable_planes: bool = False,
             if out is None:
                 out = empty_slot(lite, (gray8.shape[0],))
             copy_tree_(slot_row(out, i), lite)
+        if chunk.layouts is None:
+            chunk.layouts = flat_layouts(result)
         out["chunk_flat"] = chunk_flat(out["core_flat"], stats)
         return out, carry
 
+    chunk.layouts = None
     return chunk

@@ -154,6 +154,10 @@ class FastTracker:
         self.ref_kf = 0
         self.n_inliers = 0
         self.n_map_inliers = 0
+        # the last frame's keypoint -> map point (-1 none), as the host
+        # already reads it; chunk mode updates it at keyframes only, as the
+        # reference does (the viewer's tracked keypoints)
+        self.last_mp_idx = np.full(cfg.caps.max_keypoints, -1, np.int32)
         self.records: list[FrameRecord] = []
         self.max_frames = int(cfg.camera.fps)
         self.min_frames = int(cfg.min_kf_frames)
@@ -212,6 +216,8 @@ class FastTracker:
             g8s.numpy()[...] = g8
             d16s.numpy()[...] = d16
             result, self.carry = self.step(g8s, d16s, self.carry, self.view)
+            if self.layouts is None:  # no first frame: a map loaded from a checkpoint
+                self.layouts = dt.flat_layouts(result)
             slot = self._to_slot(result)
             pulled = dt.HostPull([slot["summary_flat"]])
         self.last_result = result
@@ -283,6 +289,8 @@ class FastTracker:
             results, self.carry = self.chunk_step(g8s, d16s, self.carry, self.view,
                                                   out=self._out[i])
             self._out[i] = results
+            if self.layouts is None:  # no first frame: a map loaded from a checkpoint
+                self.layouts = self.chunk_step.layouts
             pulled = dt.HostPull([results["chunk_flat"], results["kfx_flat"]])
         self.last_result = results
         return results, pulled, self._view_applied_epoch
@@ -397,6 +405,7 @@ class FastTracker:
         if bool(s.get("use_manhattan", False)):
             self.n_manhattan_frames += 1
         if idx is None:
+            self.last_mp_idx = s["kp_mp"]
             # landmark statistics (MapPoint::IncreaseVisible / IncreaseFound;
             # chunk mode counts them on the device)
             m = self.map
@@ -491,6 +500,7 @@ class FastTracker:
                 mp_idx = self._create_points_from_depth(feats_np, kf_id, s["kp_mp"])
                 self.counts["depth_points"] += int(((mp_idx >= 0) & (s["kp_mp"] < 0)).sum())
                 m.set_kf_matches(kf_id, mp_idx)
+                self.last_mp_idx = mp_idx
                 if self.enable_planes:
                     self._kf_planes(kf_id, payload, s["plane_assoc"])
                 if self.enable_lines:
@@ -684,6 +694,7 @@ class FastTracker:
         )
         self.counts.update(keyframes=1, depth_points=int((mp_idx >= 0).sum()))
         m.set_kf_matches(kf_id, mp_idx)
+        self.last_mp_idx = mp_idx
         if self.enable_planes:
             P = self.cfg.caps.max_planes_frame
             self._kf_planes(kf_id, payload, np.full(P, -1, np.int32))
@@ -697,6 +708,16 @@ class FastTracker:
             self.on_keyframe(kf_id, self._keyframe_frame(result, None, frame))
         self.refresh_view()
         self._ref_matches = None
+
+    def registries_from_map(self) -> None:
+        """The dense Manhattan registries rebuilt from the map's own (a map
+        loaded from a checkpoint); the next view refresh carries them."""
+        self.reg2, self.reg3 = dt.empty_registries(self.cfg)
+        for (a, b), kf in self.map.manhattan_pairs.items():
+            self.reg2[a, b] = self.reg2[b, a] = kf
+        for trip, kf in self.map.manhattan_triples.items():
+            for perm in itertools.permutations(trip):
+                self.reg3[perm] = kf
 
     def refresh_view(self) -> None:
         """Bring the device map view up to the host map (a new epoch)."""

@@ -48,6 +48,19 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     return _eye3(W) + a * W + b * W2
 
 
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """SO(3) log map: (...,3,3) -> (...,3)."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+    w_hat = 0.5 * torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        -1,
+    )
+    scale = torch.where(theta < 1e-6, 1.0 + theta**2 / 6.0,
+                        theta / torch.sin(theta).clamp(min=1e-12))
+    return w_hat * scale[..., None]
+
+
 def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     """se(3) exponential, xi = (...,6) as (rho, phi) -> (...,4,4)."""
     rho, phi = xi[..., :3], xi[..., 3:]
@@ -84,6 +97,99 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     """Rigid-transform inverse: (...,4,4) -> (...,4,4)."""
     Rt = T[..., :3, :3].transpose(-1, -2)
     return make_T(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+
+
+def rot(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, :3]
+
+
+def trans(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, 3]
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a (4,4) transform to (...,3) points."""
+    return pts @ rot(T).transpose(-1, -2) + trans(T)
+
+
+def transform_dirs(T: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    return d @ rot(T).transpose(-1, -2)
+
+
+def transform_plane(T: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    """Hesse plane coeffs (...,4) under the point transform T: planes map
+    as pi' = T^-T pi (the row vector pi times T^-1)."""
+    return pi @ inverse(T)
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (qx, qy, qz, qw), Shepperd's
+    method (equal to Eigen::Quaternion(R) up to sign)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) * 2.0
+
+    sw, sx = root(tr + 1.0), root(1.0 + m00 - m11 - m22)
+    sy, sz = root(1.0 + m11 - m00 - m22), root(1.0 + m22 - m00 - m11)
+    qw = torch.stack([(m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw, 0.25 * sw], -1)
+    qx = torch.stack([0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx, (m21 - m12) / sx], -1)
+    qy = torch.stack([(m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy, (m02 - m20) / sy], -1)
+    qz = torch.stack([(m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz, (m10 - m01) / sz], -1)
+    use_w = tr > 0
+    use_x = (~use_w) & (m00 >= m11) & (m00 >= m22)
+    use_y = (~use_w) & (~use_x) & (m11 >= m22)
+    q = torch.where(use_w[..., None], qw,
+                    torch.where(use_x[..., None], qx, torch.where(use_y[..., None], qy, qz)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(qx, qy, qz, qw) -> rotation matrix."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    s = 2.0 / torch.clamp(x * x + y * y + z * z + w * w, min=_EPS)
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack(
+        [
+            torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], -1),
+            torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], -1),
+            torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1),
+        ],
+        -2,
+    )
+
+
+def project(K: torch.Tensor, pts_cam: torch.Tensor) -> torch.Tensor:
+    """Pinhole projection of camera-frame points (...,3) -> pixels (...,2)."""
+    z = pts_cam[..., 2:3]
+    uv = pts_cam[..., :2] / torch.where(z.abs() < _EPS, torch.full_like(z, _EPS), z)
+    return torch.stack([uv[..., 0] * K[0, 0] + K[0, 2], uv[..., 1] * K[1, 1] + K[1, 2]], -1)
+
+
+def backproject(K: torch.Tensor, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Pixels (...,2) and depth (...,) -> camera-frame points (...,3)."""
+    x = (uv[..., 0] - K[0, 2]) / K[0, 0] * depth
+    y = (uv[..., 1] - K[1, 2]) / K[1, 1] * depth
+    return torch.stack([x, y, depth], -1)
+
+
+def orthonormalize(M: torch.Tensor) -> torch.Tensor:
+    """Nearest rotation by SVD (the Manhattan-frame step, Tracking.cc:820-841),
+    the last left singular vector flipped where U V^T is improper."""
+    U, _, Vt = torch.linalg.svd(M)
+    d = torch.linalg.det(U @ Vt)
+    U = torch.cat([U[..., :, :-1], U[..., :, -1:] * torch.where(d < 0, -1.0, 1.0)[..., None, None]],
+                  -1)
+    return U @ Vt
 
 
 def _inv33(A: torch.Tensor) -> torch.Tensor:

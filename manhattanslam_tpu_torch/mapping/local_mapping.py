@@ -60,6 +60,20 @@ def pull(parts: dict) -> dict:
     return out
 
 
+def kf_feats(m, kfs, device) -> dict:
+    """Keyframes kfs' keypoint features (xy, desc, valid, level) stacked,
+    on `device` (fuse_candidates' feature view)."""
+    sl = np.asarray(kfs, np.int64)
+    host = {"xy": m.kf_xy[sl], "desc": m.kf_desc[sl], "valid": m.kf_kp_valid[sl],
+            "level": m.kf_level[sl]}
+    return {k: to_device(v, device) for k, v in host.items()}
+
+
+def kf_feats_one(m, kf: int, device=torch.device("cpu")) -> dict:
+    """One keyframe's keypoint feature view for fuse_candidates."""
+    return {k: v[0] for k, v in kf_feats(m, [kf], device).items()}
+
+
 class LocalMapper:
     N_TRI_NEIGHBORS = 10  # triangulation neighbours a keyframe event
     N_TG = 24  # fusion targets a keyframe event
@@ -98,28 +112,57 @@ class LocalMapper:
 
     def create_and_fuse(self, kf_id: int) -> None:
         """CreateNewMapPoints and SearchInNeighbors with one transfer: both
-        device programs are issued, then one pull.  The fusion banks come
-        from the tables before triangulation, so this keyframe's new
-        points first fuse at the next keyframe event, as in the
-        reference package."""
-        tri_job = self._tri_dispatch(kf_id)
-        fuse_job = self._fuse_dispatch(kf_id)
-        parts = {}
-        if tri_job is not None:
-            parts.update({"tri_" + k: tri_job[0][k] for k in ("ok", "idx2", "pos_w")})
-        if fuse_job is not None:
-            parts.update({"f1_" + k: fuse_job[0][k] for k in ("ok", "kp_idx")})
-            if fuse_job[1] is not None:
-                parts.update({"f2_" + k: fuse_job[1][k] for k in ("ok", "kp_idx")})
-        host = pull(parts)
+        halves issue their device programs, then one pull, then each
+        applies its part.  The fusion banks come from the tables before
+        triangulation, so this keyframe's new points first fuse at the
+        next keyframe event, as in the reference package."""
+        tri_parts, tri_apply = self.create_new_points(kf_id, defer=True)
+        fuse_parts, fuse_apply = self.fuse_neighbors(kf_id, defer=True)
+        host = pull({**{"tri_" + k: v for k, v in tri_parts.items()},
+                     **{"fuse_" + k: v for k, v in fuse_parts.items()}})
 
         def group(prefix):
             return {k[len(prefix):]: v for k, v in host.items() if k.startswith(prefix)}
 
-        if tri_job is not None:
-            self._tri_apply(kf_id, group("tri_"), tri_job[1])
-        if fuse_job is not None:
-            self._fuse_apply(kf_id, group("f1_"), group("f2_") or None, fuse_job[2])
+        tri_apply(group("tri_"))
+        fuse_apply(group("fuse_"))
+
+    def create_new_points(self, kf_id: int, n_neighbors: int = N_TRI_NEIGHBORS,
+                          defer: bool = False):
+        """CreateNewMapPoints (LocalMapping.cc:303-521): this keyframe's
+        free keypoints triangulated against its covisible keyframes, one
+        device program over the neighbour stack, one pull.  defer=True
+        returns (the device outputs to pull, apply(pulled)) instead."""
+        job = self._tri_dispatch(kf_id, n_neighbors)
+        parts = {} if job is None else {k: job[0][k] for k in ("ok", "idx2", "pos_w")}
+
+        def apply(host: dict) -> None:
+            if job is not None:
+                self._tri_apply(kf_id, host, job[1])
+
+        return (parts, apply) if defer else apply(pull(parts))
+
+    def fuse_neighbors(self, kf_id: int, n_neighbors: int = 10, n_second: int = 5,
+                       defer: bool = False):
+        """SearchInNeighbors (LocalMapping.cc:524-622): two-hop covisibility
+        targets, fused both ways (this keyframe's points into every target
+        and the targets' points into this keyframe), one pull.
+        defer=True returns (the device outputs to pull, apply(pulled))
+        instead."""
+        job = self._fuse_dispatch(kf_id, n_neighbors, n_second)
+        parts = {}
+        if job is not None:
+            parts.update({"f1_" + k: job[0][k] for k in ("ok", "kp_idx")})
+            if job[1] is not None:
+                parts.update({"f2_" + k: job[1][k] for k in ("ok", "kp_idx")})
+
+        def apply(host: dict) -> None:
+            if job is not None:
+                f2 = {k[3:]: v for k, v in host.items() if k.startswith("f2_")}
+                self._fuse_apply(kf_id, {k[3:]: v for k, v in host.items() if k.startswith("f1_")},
+                                 f2 or None, job[2])
+
+        return (parts, apply) if defer else apply(pull(parts))
 
     # -------------------------------------------------------------- culling
     def _obs_counts(self) -> np.ndarray:
@@ -193,15 +236,15 @@ class LocalMapper:
     def _kf_kp_view(self, kf: int, only_free: bool) -> dict:
         return {k: v[0] for k, v in self._kf_kp_stack([kf], only_free).items()}
 
-    def _tri_dispatch(self, kf_id: int):
+    def _tri_dispatch(self, kf_id: int, n_neighbors: int = N_TRI_NEIGHBORS):
         m = self.map
         # the baseline check (LocalMapping.cc:354-372), on the poses'
         # translations as in the reference package
         neighbors = [
-            int(nb) for nb in m.covisible_kfs(kf_id)[: self.N_TRI_NEIGHBORS]
+            int(nb) for nb in m.covisible_kfs(kf_id)[:n_neighbors]
             if np.linalg.norm(m.kf_pose[kf_id][:3, 3] - m.kf_pose[nb][:3, 3])
             >= self.cfg.camera.baseline
-        ]
+        ][: self.N_TRI_NEIGHBORS]
         if not neighbors:
             return None
         outs = tri.triangulate_pairs(
@@ -253,13 +296,6 @@ class LocalMapper:
         return (to_device(m.mp_pos[ids], dev), to_device(m.mp_desc[ids], dev),
                 to_device(m.mp_valid[ids], dev), ids.astype(np.int64))
 
-    def _kf_feats(self, kfs) -> dict:
-        m = self.map
-        sl = np.asarray(kfs, np.int64)
-        host = {"xy": m.kf_xy[sl], "desc": m.kf_desc[sl], "valid": m.kf_kp_valid[sl],
-                "level": m.kf_level[sl]}
-        return {k: to_device(v, self.device) for k, v in host.items()}
-
     def _fuse_dispatch(self, kf_id: int, n_neighbors: int = 10, n_second: int = 5):
         """SearchInNeighbors' targets: the first-order covisible keyframes
         and n_second of each one's own (:536-542); this keyframe's points
@@ -284,7 +320,7 @@ class LocalMapper:
         pos, desc, valid, my_bank = self._bank(my_ids)
         outs1 = tri.fuse_candidates_batch(
             pos, desc, valid, to_device(m.kf_pose[targets], self.device),
-            self._kf_feats(targets), self.K, h, w,
+            kf_feats(m, targets, self.device), self.K, h, w,
         )
         jobs = [(nb, my_bank, j) for j, nb in enumerate(targets)]
         out2 = None
@@ -294,7 +330,7 @@ class LocalMapper:
         tgt_ids = np.setdiff1d(tgt_ids, my_ids, assume_unique=True)
         if len(tgt_ids):
             pos2, desc2, valid2, tgt_bank = self._bank(tgt_ids)
-            feats = {k: v[0] for k, v in self._kf_feats([kf_id]).items()}
+            feats = kf_feats_one(m, kf_id, self.device)
             out2 = tri.fuse_candidates(pos2, desc2, valid2, to_device(m.kf_pose[kf_id], self.device),
                                        feats, self.K, h, w)
             jobs.append((kf_id, tgt_bank, None))

@@ -38,6 +38,39 @@ def resize_matrix_np(in_size: int, out_size: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+def avgpool2_matrix_np(in_size: int) -> np.ndarray:
+    """(in_size//2, in_size) operator of the 2x2 box downsample along one
+    axis (each output the mean of two neighbours)."""
+    out = in_size // 2
+    m = np.zeros((out, in_size), np.float32)
+    idx = np.arange(out)
+    m[idx, 2 * idx] = 0.5
+    m[idx, 2 * idx + 1] = 0.5
+    return m
+
+
+def stride_select_matrix_np(in_size: int, stride: int) -> np.ndarray:
+    """(ceil(in/stride), in) operator picking every stride-th element
+    (x[::stride] as a product)."""
+    out = -(-in_size // stride)
+    m = np.zeros((out, in_size), np.float32)
+    idx = np.arange(out)
+    m[idx, stride * idx] = 1.0
+    return m
+
+
+def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Linear resize with triangle antialiasing (jax.image.resize
+    "linear") as two constant products, R_y @ img @ R_x^T."""
+    h, w = img.shape[-2:]
+    oh, ow = out_hw
+    if (oh, ow) == (h, w):
+        return img
+    ry = torch.from_numpy(resize_matrix_np(h, oh)).to(img.device)
+    rx = torch.from_numpy(resize_matrix_np(w, ow)).to(img.device)
+    return _resize(img, ry, rx)
+
+
 def pyramid_operators(
     h: int, w: int, n_levels: int, scale: float, device
 ) -> list[tuple[torch.Tensor, torch.Tensor]]:

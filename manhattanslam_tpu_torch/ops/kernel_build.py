@@ -1,13 +1,15 @@
-"""Build and load the hand-written CUDA kernels in ``csrc/``.
+"""Build and load the hand-written CUDA kernels and host C++ in ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C function and is compiled on
-first use by ONE ``nvcc`` call into ``build/torch_kernels/<name>-<hash>.so``
-at the root of the checkout (a git-ignored directory), then loaded with
-``ctypes``.  The hash covers the source and the compiler flags, so an
-edited source is rebuilt and an unchanged one is reused.  Sources that
-need building are compiled in parallel, one ``nvcc`` process each.
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host
+C++: the exact AHC plane merge) exposes a plain C function and is
+compiled on first use by ONE ``nvcc`` or ``g++`` call into
+``build/torch_kernels/<name>-<hash>.so`` at the root of the checkout (a
+git-ignored directory), then loaded with ``ctypes``.  The hash covers the
+source and the compiler flags, so an edited source is rebuilt and an
+unchanged one is reused.  Sources that need building are compiled in
+parallel, one compiler process each.
 
-Nothing here falls back: a missing ``nvcc`` or a failed build raises.
+Nothing here falls back: a missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+CXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +50,14 @@ SIGNATURES = {
     "brief": ("mslam_brief_levels",
               (_PP, _PI, _PI, _PI, _PI, _PF, _I, _I, _I, _P, _P, _P, _P, _P, _P)),
 }
+_PD = ctypes.POINTER(ctypes.c_double)
+# C signature of each host C++ source's entry point: (symbol, argtypes).
+HOST_SIGNATURES = {
+    # bh, bw, n, s1, s2, normal, mean, valid, angle_cos, min_support, labels
+    "ahc_merge": ("ahc_merge", (_I, _I, _PD, _PD, _PD, _PD, _PD,
+                                ctypes.POINTER(ctypes.c_uint8), ctypes.c_double,
+                                ctypes.c_double, ctypes.POINTER(ctypes.c_int32))),
+}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -62,15 +73,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the host C++ sources cannot be built")
+
+
+def _source(name: str) -> tuple[Path, tuple, tuple]:
+    """(source path, compiler command, flags) of csrc/<name>."""
+    if name in HOST_SIGNATURES:
+        return _CSRC / f"{name}.cpp", (_gxx(),), CXX_FLAGS
+    return _CSRC / f"{name}.cu", (_nvcc(),), NVCC_FLAGS
+
+
 def _target(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src, _, flags = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(names=tuple(SIGNATURES)) -> dict[str, ctypes._CFuncPtr]:
-    """Compile (where needed, in parallel) and load the named kernels;
-    returns {name: C function}.  Raises with nvcc's output on failure."""
+def build(names=tuple(SIGNATURES) + tuple(HOST_SIGNATURES)) -> dict[str, ctypes._CFuncPtr]:
+    """Compile (where needed, in parallel) and load the named kernels and
+    host libraries; returns {name: C function}.  Raises with the
+    compiler's output on failure."""
     with _lock:
         todo = [n for n in names if n not in _loaded]
         pending = []
@@ -80,23 +106,24 @@ def build(names=tuple(SIGNATURES)) -> dict[str, ctypes._CFuncPtr]:
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+            src, compiler, flags = _source(name)
+            cmd = [*compiler, *flags, "-o", str(tmp), str(src)]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
-            pending.append((name, so, tmp, proc))
+            pending.append((name, so, tmp, proc, src))
         errors = []
-        for name, so, tmp, proc in pending:
+        for name, so, tmp, proc, src in pending:
             out, _ = proc.communicate()
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for csrc/{name}.cu:\n{out}")
+                errors.append(f"building csrc/{src.name} failed:\n{out}")
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, so)
         if errors:
             raise RuntimeError("\n".join(errors))
         for name in todo:
-            symbol, argtypes = SIGNATURES[name]
+            symbol, argtypes = {**SIGNATURES, **HOST_SIGNATURES}[name]
             fn = getattr(ctypes.CDLL(str(_target(name))), symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -105,7 +132,7 @@ def build(names=tuple(SIGNATURES)) -> dict[str, ctypes._CFuncPtr]:
 
 
 def kernel(name: str) -> ctypes._CFuncPtr:
-    """The C entry point of csrc/<name>.cu, built on first use."""
+    """The C entry point of csrc/<name>.cu (or .cpp), built on first use."""
     fn = _loaded.get(name)
     return fn if fn is not None else build((name,))[name]
 

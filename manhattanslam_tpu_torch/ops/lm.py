@@ -69,6 +69,23 @@ class PoseProblem(NamedTuple):
     ln_mask: torch.Tensor | None = None  # (B, NL) bool
 
 
+def empty_problem(npt=512, nl=128, np_=8, npar=8, nver=8, lead: tuple = (),
+                  device=None) -> PoseProblem:
+    """A problem with every row masked out (lead: its batch axes)."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    off = torch.bool
+    return PoseProblem(
+        pt_xw=z(npt, 3), pt_obs=z(npt, 3), pt_info=z(npt), pt_stereo=z(npt, dtype=off),
+        pt_mask=z(npt, dtype=off),
+        pl_w=z(np_, 4), pl_obs=z(np_, 4), pl_mask=z(np_, dtype=off),
+        par_w=z(npar, 4), par_obs=z(npar, 4), par_mask=z(npar, dtype=off),
+        ver_w=z(nver, 4), ver_obs=z(nver, 4), ver_mask=z(nver, dtype=off),
+        ln_xw=z(nl, 3), ln_eq=z(nl, 3), ln_info=z(nl), ln_mask=z(nl, dtype=off),
+    )
+
+
 def stack_problems(probs: list[PoseProblem]) -> PoseProblem:
     """Concatenate problems along the batch axis (a family that none of
     them carries stays None)."""

@@ -138,6 +138,82 @@ def project_points(
     return torch.stack([u, v], -1), z
 
 
+def search_by_projection(
+    pts_w: torch.Tensor,
+    descs: torch.Tensor,
+    valid_pts: torch.Tensor,
+    T_cw: torch.Tensor,
+    feats: dict,
+    K: torch.Tensor,
+    image_hw: tuple[int, int],
+    radius: float,
+    max_dist: float = TH_HIGH,
+    scale_factor: float = 1.2,
+    point_levels: torch.Tensor | None = None,
+    level_tolerance: int = 1,
+    max_depth_ratio: tuple[torch.Tensor, torch.Tensor] | None = None,
+    view_dirs: torch.Tensor | None = None,
+    cand_cap: int = 4096,
+) -> dict:
+    """Project one frame's landmark bank (N, ...) and match within a pixel
+    radius (ORBmatcher::SearchByProjection, ORBmatcher.cc:40-117 and
+    :548-678).  Gates: positive depth, in-image, the per-level radius
+    radius * scale^level, a level difference of at most level_tolerance,
+    optionally the scale-distance band and the viewing cosine.  The gated
+    landmarks, in bank order, are compacted to cand_cap candidates first.
+
+    Returns kp_idx, dist, valid (N,), proj_uv, z at bank level and the
+    candidate-space results c_bank, c_kp, c_dist, c_ok (cand_cap,)."""
+    h, w = image_hw
+    uv, z = project_points(T_cw, pts_w, K)
+    in_img = (z > 0.05) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) & (uv[:, 1] < h)
+    gate = valid_pts & in_img
+    cam_center = -T_cw[:3, :3].T @ T_cw[:3, 3]
+    if max_depth_ratio is not None:
+        min_d, max_d = max_depth_ratio
+        dist_w = torch.linalg.norm(pts_w - cam_center[None], dim=-1)
+        gate = gate & (dist_w >= min_d) & (dist_w <= max_d)
+    if view_dirs is not None:
+        po = pts_w - cam_center[None]
+        pn = po / torch.linalg.norm(po, dim=-1, keepdim=True).clamp(min=1e-9)
+        gate = gate & (torch.sum(pn * view_dirs, -1) > 0.5)
+    N = pts_w.shape[0]
+    dev = pts_w.device
+    if point_levels is None:
+        point_levels = torch.zeros(N, dtype=torch.int32, device=dev)
+    rad = radius * torch.pow(scale_factor, point_levels.to(torch.float32))
+
+    # frustum compaction: the first cand_cap gated landmarks, in bank order
+    CAND = min(cand_cap, N)
+    if CAND < N:
+        rank = torch.cumsum(gate.to(torch.int64), 0) - 1
+        slot = torch.where(gate & (rank < CAND), rank, CAND)
+        cand_idx = torch.zeros(CAND + 1, dtype=torch.int64, device=dev).scatter(
+            0, slot, torch.arange(N, device=dev))[:CAND]
+        cand_valid = torch.zeros(CAND + 1, dtype=torch.bool, device=dev).scatter(
+            0, slot, gate)[:CAND]
+    else:
+        cand_idx = torch.arange(N, device=dev)
+        cand_valid = gate
+    c_uv, c_rad, c_lvl = uv[cand_idx], rad[cand_idx], point_levels[cand_idx]
+    duv = feats["xy_und"][None, :, :] - c_uv[:, None, :]
+    pix_ok = (duv[..., 0].abs() <= c_rad[:, None]) & (duv[..., 1].abs() <= c_rad[:, None])
+    pix_ok = pix_ok & ((feats["level"][None, :] - c_lvl[:, None]).abs() <= level_tolerance)
+    idx, dist, ok = match_descriptors(descs[cand_idx], feats["desc"], cand_valid, feats["valid"],
+                                      max_dist=max_dist, extra_mask=pix_ok)
+    ok = resolve_one_to_one(idx, dist, ok, feats["desc"].shape[0])
+    # candidate results back at bank level (unfilled slots point at N,
+    # dropped)
+    tgt = torch.where(cand_valid, cand_idx, N)
+    kp_idx = torch.zeros(N + 1, dtype=torch.int32, device=dev).scatter(0, tgt, idx)[:N]
+    dist_b = torch.full((N + 1,), BIG, dtype=dist.dtype, device=dev).scatter(0, tgt, dist)[:N]
+    ok_b = torch.zeros(N + 1, dtype=torch.bool, device=dev).scatter(0, tgt, ok)[:N]
+    return {
+        "kp_idx": kp_idx, "dist": dist_b, "valid": ok_b, "proj_uv": uv, "z": z,
+        "c_bank": tgt.to(torch.int32), "c_kp": idx, "c_dist": dist, "c_ok": ok,
+    }
+
+
 def predict_scale_level(
     dist_w: torch.Tensor, max_dist: torch.Tensor, scale_factor: float, n_levels: int
 ) -> torch.Tensor:

@@ -329,6 +329,10 @@ def brief_descriptors_plain(
     return _pack_words(vals[..., 0] < vals[..., 1])
 
 
+# the reference's name of the steered BRIEF of a blurred image
+brief_descriptors = brief_descriptors_plain
+
+
 def brief_levels_plain(levels, xy_flat, angle_flat, budgets) -> torch.Tensor:
     """The plain version per level: the integer-rounded blur of the level,
     then ``brief_descriptors_plain``, filling the same level-major
@@ -406,6 +410,23 @@ def brief_level(level_img: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor) 
         _check_keypoint_batch("brief_level", level_img, xy)
     words = brief_levels([level_img], xy.reshape(-1, 2), angle.reshape(-1), [xy.shape[-2]])
     return words.view(xy.shape[:-1] + (8,))
+
+
+def gather_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
+    """(N, 2r+1, 2r+1) patches of img (H, W) around the integer xy (x, y),
+    each window clipped to lie inside the image."""
+    d = 2 * radius + 1
+    h, w = img.shape
+    x0 = torch.clamp(xy[:, 0].to(torch.int64) - radius, 0, w - d)
+    y0 = torch.clamp(xy[:, 1].to(torch.int64) - radius, 0, h - d)
+    off = torch.arange(d, device=img.device)
+    return img[(y0[:, None, None] + off[None, :, None]), (x0[:, None, None] + off[None, None, :])]
+
+
+def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 8) x (..., 8) int32 words (broadcast) -> (...,) int32
+    popcount of a ^ b."""
+    return unpack_descriptor_bits(torch.bitwise_xor(a, b)).sum(-1).to(torch.int32)
 
 
 def unpack_descriptor_bits(desc: torch.Tensor) -> torch.Tensor:

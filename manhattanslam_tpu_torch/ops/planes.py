@@ -7,20 +7,23 @@ block moments and their closed-form smallest eigenpair -> block merging by
 min-label propagation with pointer jumping -> the largest segments as
 plane slots -> pixel membership by erosion and an iterated masked
 dilation, refit, distance re-gate -> a spread sample of each plane's
-pixels by hash-priority buckets.
+pixels by hash-priority buckets.  ``extract_planes(method="ahc")`` puts
+the exact PEAC AHC min-MSE merge on the host in place of the device
+merge: ``plane_stage1`` (cloud and packed block stats, one pull),
+``merge_blocks`` (the C++ merge, ``ops/native.py``, or
+``merge_blocks_py``), then the same ``plane_stage2``.
 
 Every function takes one frame or B streams with a leading stream axis;
 reductions, scatters and orderings run per stream.  Orderings are the
 reference's: ``jax.lax.top_k`` puts the lower index first among equal
 values, so the port sorts stably; ``argmin``/``argmax`` take the first.
-``extract_planes`` is the modular tracker's host wrapper of the device
-path; the reference's exact host AHC merge (``method="ahc"``,
-``merge_blocks``) is not ported yet.
+``extract_planes`` is the modular tracker's host wrapper.
 """
 
 from __future__ import annotations
 
 import functools
+import heapq
 
 import numpy as np
 import torch
@@ -56,6 +59,14 @@ def t_ang_cos(z: torch.Tensor) -> torch.Tensor:
     zc = torch.clamp(z, Z_NEAR, Z_FAR)
     ang = ANG_NEAR + (ANG_FAR - ANG_NEAR) * (zc - Z_NEAR) / (Z_FAR - Z_NEAR)
     return torch.cos(ang)
+
+
+def t_ang_cos_np(z):
+    """t_ang_cos in numpy float64: the host merge's gate (the reference
+    calls its t_ang_cos with xp=np)."""
+    zc = np.clip(z, Z_NEAR, Z_FAR)
+    ang = ANG_NEAR + (ANG_FAR - ANG_NEAR) * (zc - Z_NEAR) / (Z_FAR - Z_NEAR)
+    return np.cos(ang)
 
 
 def transform_plane_np(T: np.ndarray, pi: np.ndarray) -> np.ndarray:
@@ -208,6 +219,187 @@ def merge_blocks_device(stats: dict, grid_shape: tuple[int, int], min_support) -
         -1, seg, stats["n"].to(torch.float32))
     keep = support.gather(-1, torch.clamp(lab, 0, nb).long()) >= min_support
     return torch.where((lab >= 0) & keep, lab, torch.full_like(lab, -1))
+
+
+def _seg_plane(n, s1, s2):
+    """Plane from accumulated float64 moments: (normal, d, mse)."""
+    mean = s1 / n
+    cov = s2 / n - np.outer(mean, mean)
+    evals, evecs = np.linalg.eigh(cov)
+    normal = evecs[:, 0]
+    if normal @ mean > 0:
+        normal = -normal
+    return normal, -float(normal @ mean), max(float(evals[0]), 0.0)
+
+
+def _mse_threshold(z: float) -> float:
+    """Depth-dependent planarity tolerance of the host merge (AHCParamSet
+    dynamic T_mse: sigma_z ~ 1.6e-6 * z^2 in mm, plus an 8 mm floor)."""
+    sigma = 1.6e-6 * (z * z) * 1e3 + 0.008  # meters
+    return sigma * sigma
+
+
+def merge_blocks(
+    stats: dict, grid_shape: tuple[int, int], min_support: int,
+    angle_cos: float | None = None, use_native: bool | None = None,
+) -> np.ndarray:
+    """Agglomerative min-MSE merging of the block graph on the host, the
+    exact PEAC AHC semantics (AHCPlaneFitter.hpp:939 ahCluster): the C++
+    merge (``ops/native.py``) unless use_native is False, which takes
+    ``merge_blocks_py``.  A missing compiler or a failed build raises.
+    Returns labels (B,) int32: -1 unassigned, else a segment id; only
+    segments with >= min_support points survive."""
+    if use_native is False:
+        return merge_blocks_py(stats, grid_shape, min_support, angle_cos)
+    from manhattanslam_tpu_torch.ops import native
+
+    return native.ahc_merge_native(stats, grid_shape, min_support, angle_cos)
+
+
+def merge_blocks_py(
+    stats: dict, grid_shape: tuple[int, int], min_support: int,
+    angle_cos: float | None = None,
+) -> np.ndarray:
+    """The exact AHC merge in Python (see merge_blocks), in float64 on the
+    pulled float32 stats.  The lazy heap pops (mse, i, j, n) tuples: its
+    order decides the partition.  angle_cos=None uses the dynamic
+    T_ang(INIT, z) normal gate per edge (AHCParamSet.hpp:100-128); a
+    float forces a fixed gate."""
+    bh, bw = grid_shape
+    B = bh * bw
+    valid = np.asarray(stats["valid"])
+    n = np.asarray(stats["n"]).astype(np.float64)
+    s1 = np.asarray(stats["s1"]).astype(np.float64)
+    s2 = np.asarray(stats["s2"]).astype(np.float64)
+    normal = np.asarray(stats["normal"]).astype(np.float64)
+    mean = np.asarray(stats["mean"]).astype(np.float64)
+
+    def cos_th(i, j):
+        if angle_cos is not None:
+            return angle_cos
+        zbar = 0.5 * (mean[i][2] + mean[j][2])
+        return float(t_ang_cos_np(zbar))
+
+    parent = np.arange(B)
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    # neighbour edges (4-connectivity on the block grid)
+    heap = []
+    for i in range(B):
+        if not valid[i]:
+            continue
+        y, x = divmod(i, bw)
+        for j in (i + 1 if x + 1 < bw else -1, i + bw if y + 1 < bh else -1):
+            if j < 0 or not valid[j]:
+                continue
+            if normal[i] @ normal[j] < cos_th(i, j):
+                continue
+            nm = n[i] + n[j]
+            _, _, mse = _seg_plane(nm, s1[i] + s1[j], s2[i] + s2[j])
+            heapq.heappush(heap, (mse, i, j, int(nm)))
+
+    neighbors: dict[int, set] = {i: set() for i in range(B)}
+    for i in range(B):
+        if not valid[i]:
+            continue
+        y, x = divmod(i, bw)
+        for j in (i - 1 if x else -1, i + 1 if x + 1 < bw else -1,
+                  i - bw if y else -1, i + bw if y + 1 < bh else -1):
+            if j >= 0 and valid[j]:
+                neighbors[i].add(j)
+
+    while heap:
+        mse, a, b, nm = heapq.heappop(heap)
+        ra, rb = find(a), find(b)
+        if ra == rb:
+            continue
+        # lazy heap: the candidate merge again at the current roots
+        nm2 = n[ra] + n[rb]
+        nrm, d, mse2 = _seg_plane(nm2, s1[ra] + s1[rb], s2[ra] + s2[rb])
+        zbar = (mean[ra][2] * n[ra] + mean[rb][2] * n[rb]) / nm2
+        if mse2 > _mse_threshold(float(zbar)):
+            continue
+        # merge rb into ra
+        parent[rb] = ra
+        n[ra] = nm2
+        s1[ra] = s1[ra] + s1[rb]
+        s2[ra] = s2[ra] + s2[rb]
+        mean[ra] = s1[ra] / n[ra]
+        normal[ra] = nrm
+        neighbors[ra] = (neighbors[ra] | neighbors[rb]) - {ra, rb}
+        for nb in neighbors[ra]:
+            rn = find(nb)
+            if rn == ra:
+                continue
+            if normal[ra] @ normal[rn] < cos_th(ra, rn):
+                continue
+            ntot = n[ra] + n[rn]
+            _, _, m = _seg_plane(ntot, s1[ra] + s1[rn], s2[ra] + s2[rn])
+            heapq.heappush(heap, (m, ra, rn, int(ntot)))
+
+    roots = np.array([find(i) if valid[i] else -1 for i in range(B)])
+    labels = np.full(B, -1, np.int32)
+    seg_id = 0
+    for r in np.unique(roots):
+        if r < 0:
+            continue
+        if n[r] >= min_support:
+            labels[roots == r] = seg_id
+            seg_id += 1
+    return labels
+
+
+def plane_stage1(depth: torch.Tensor, K: torch.Tensor, stride: int = 2):
+    """Cloud and block stats of one depth image (H, W), the stats PACKED
+    for a single host pull.  Returns (pts (h, w, 3), packed (B, 20)
+    float32): packed = [n, s1(3), s2-upper(6), normal(3), mean(3), mse,
+    valid, pad(2)]."""
+    pts = depth_to_points(depth, K, stride)
+    st = block_stats(pts)
+    s2 = st["s2"]
+    s2u = torch.stack([s2[:, 0, 0], s2[:, 0, 1], s2[:, 0, 2],
+                       s2[:, 1, 1], s2[:, 1, 2], s2[:, 2, 2]], -1)
+    packed = torch.cat([
+        st["n"].to(torch.float32)[:, None], st["s1"], s2u, st["normal"], st["mean"],
+        st["mse"][:, None], st["valid"].to(torch.float32)[:, None],
+        torch.zeros((st["n"].shape[0], 2), dtype=torch.float32, device=pts.device),
+    ], -1)
+    return pts, packed
+
+
+def unpack_stats(packed: np.ndarray) -> dict:
+    """Host block stats from plane_stage1's pulled (B, 20) array; s2 is
+    the full symmetric (B, 3, 3) in float64."""
+    n = packed[:, 0]
+    s1 = packed[:, 1:4]
+    u = packed[:, 4:10]
+    s2 = np.zeros((len(packed), 3, 3), np.float64)
+    s2[:, 0, 0], s2[:, 0, 1], s2[:, 0, 2] = u[:, 0], u[:, 1], u[:, 2]
+    s2[:, 1, 1], s2[:, 1, 2], s2[:, 2, 2] = u[:, 3], u[:, 4], u[:, 5]
+    s2[:, 1, 0], s2[:, 2, 0], s2[:, 2, 1] = u[:, 1], u[:, 2], u[:, 4]
+    return {
+        "n": n, "s1": s1, "s2": s2,
+        "normal": packed[:, 10:13], "mean": packed[:, 13:16],
+        "mse": packed[:, 16], "valid": packed[:, 17] > 0.5,
+    }
+
+
+def ahc_block_planes(labels: np.ndarray, n_blocks: np.ndarray, max_planes: int) -> np.ndarray:
+    """AHC segment labels (B,) -> plane slots (B,) int32: the max_planes
+    segments of most points, largest first, -1 elsewhere.  numpy's default
+    argsort breaks ties as the reference's does."""
+    seg_ids = np.unique(labels[labels >= 0])
+    support = np.array([n_blocks[labels == s].sum() for s in seg_ids])
+    order = np.argsort(-support)[:max_planes]
+    remap = np.full(labels.max() + 2 if labels.size else 1, -1, np.int32)
+    for new_id, k in enumerate(order):
+        remap[seg_ids[k]] = new_id
+    return np.where(labels >= 0, remap[np.maximum(labels, 0)], -1).astype(np.int32)
 
 
 def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -426,27 +618,45 @@ def extract_planes(
     device=None,
 ) -> dict:
     """Host wrapper of the frame-plane extraction (Frame::ExtractPlanes,
-    the reference's ``extract_planes``): ``extract_planes_device`` on
-    depth's own device when it is a tensor, else on `device` (CUDA unless
-    the caller asks for another, ``resolve_device``), then ONE pull of
-    the coefficients, supports, flags, counts and clouds.  Returns numpy
+    the reference's ``extract_planes``) on depth's own device when it is a
+    tensor, else on `device` (CUDA unless the caller asks for another,
+    ``resolve_device``).  method="device": ``extract_planes_device``, no
+    host round trip inside.  method="ahc": ``plane_stage1``, one pull of
+    the block stats, the exact host merge (``merge_blocks``, C++), its
+    max_planes largest segments, ``plane_stage2``.  Then ONE pull of the
+    coefficients, supports, flags, counts and clouds.  Returns numpy
     coeffs (P, 4), cloud (P, M, 3), n_pts, n_support, valid (P,), and the
     half-resolution membership (h, w) int32, which stays on the device
     (the surfel mapper's plane mask)."""
-    if method != "device":
-        raise NotImplementedError(
-            f"extract_planes(method={method!r}): the exact host AHC merge (the reference's "
-            "merge_blocks and native/ahc_merge.cpp) is not ported yet; ROADMAP.md Queue 1 "
-            "lists it as the item before persistence and the viewer")
+    if method not in ("device", "ahc"):
+        raise ValueError(f"extract_planes: method {method!r} is neither 'device' nor 'ahc'")
     if not isinstance(depth, torch.Tensor):
         depth = torch.from_numpy(np.asarray(depth, np.float32)).to(resolve_device(device))
     dev = depth.device
     K_t = torch.as_tensor(np.asarray(K, np.float32), device=dev)
     h, w = depth.shape[0] // stride, depth.shape[1] // stride
+    bh, bw = h // BLOCK, w // BLOCK
     min_support = int(min_support_frac * h * w)
-    out = extract_planes_device(
-        depth, K_t, max_planes, max_points, (h // BLOCK, w // BLOCK), float(min_support),
-        float(np.float32(dist_th)), stride)
+    dist_th = float(np.float32(dist_th))
+    if method == "ahc":
+        pts, packed_stats = plane_stage1(depth, K_t, stride)
+        stats = unpack_stats(packed_stats.cpu().numpy())
+        labels = merge_blocks(stats, (bh, bw), min_support)
+        block_plane = ahc_block_planes(labels, stats["n"], max_planes)
+        st2 = plane_stage2(pts[None], torch.from_numpy(block_plane.reshape(1, bh, bw)).to(dev),
+                           dist_th, max_planes, max_points)
+        n_support = st2["n_support"][0].to(torch.int32)
+        out = {
+            "membership": st2["membership"][0],
+            "coeffs": st2["coeffs"][0],
+            "n_support": n_support,
+            "valid": st2["valid"][0] & (n_support >= float(np.float32(min_support))),
+            "n_pts": st2["n_pts"][0],
+            "cloud": st2["cloud"][0],
+        }
+    else:
+        out = extract_planes_device(depth, K_t, max_planes, max_points, (bh, bw),
+                                    float(min_support), dist_th, stride)
     # one pull: coeffs (4), n_support, valid, n_pts, then the cloud
     P, M = out["cloud"].shape[:2]
     packed = torch.cat([

@@ -16,7 +16,9 @@ point culling, triangulation, fusion, keyframe, plane and line culling),
 into the relocalization index (``Relocalizer``), which recovers lost
 frames, and, with surfels on, into the surfel map (``SurfelMapper``),
 built from the keyframe's own gray and depth; all of it runs on the
-calling thread.
+calling thread.  ``use_viewer`` keeps a headless ``Viewer`` up to date
+after every frame; ``save_map`` / ``load_map`` checkpoint the map and
+resume from it (``io/map_io.py``).
 
 The system runs on CUDA unless ``device`` says otherwise; with no GPU it
 raises rather than falling back to the CPU.
@@ -36,17 +38,20 @@ from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
 from manhattanslam_tpu_torch.frontend.lines_module import LineModule
 from manhattanslam_tpu_torch.frontend.planes_module import PlaneModule
 from manhattanslam_tpu_torch.frontend.tracking import KeyframeFrame, Tracker
+from manhattanslam_tpu_torch.io import map_io
 from manhattanslam_tpu_torch.io import trajectory as traj_io
 from manhattanslam_tpu_torch.mapping.local_mapping import LocalMapper
 from manhattanslam_tpu_torch.mapping.surfel_mapping import SurfelMapper
 from manhattanslam_tpu_torch.reloc.relocalizer import Relocalizer
 from manhattanslam_tpu_torch.slam_map import SlamMap
+from manhattanslam_tpu_torch.viewer import Viewer
 
 
 class System:
     def __init__(
         self,
         settings: str | SlamConfig,
+        use_viewer: bool = False,
         enable_planes: bool = True,
         enable_lines: bool = True,
         enable_surfels: bool = True,
@@ -73,6 +78,8 @@ class System:
                               if enable_surfels else None)
         self.kf_perf = defaultdict(float)  # host seconds of the keyframe hooks
         self.n_resets = 0
+        self.use_viewer = use_viewer
+        self.viewer = None
         self.tracker = None
         self._new_tracker()
 
@@ -100,6 +107,8 @@ class System:
         tracker.reloc_module = self.reloc_module
         tracker.on_keyframe = self._on_keyframe
         self.tracker = tracker
+        if self.use_viewer:
+            self.viewer = Viewer(self.cfg, self.map, tracker, self.surfel_mapper)
 
     def track(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float):
         """Process one frame.  rgb: (H,W,3) uint8 or (H,W) gray; depth:
@@ -117,7 +126,12 @@ class System:
         if self.tracker.request_reset:
             # lost with <=5 keyframes: automatic full reset (Tracking.cc:517-523)
             self.reset()
+        if self.viewer is not None:
+            self.viewer.update()
         return T
+
+    # the reference's naming (System::Track)
+    Track = track
 
     def activate_localization_mode(self) -> None:
         self.tracker.only_tracking = True
@@ -181,3 +195,22 @@ class System:
     def save_surfels(self, path: str) -> None:
         if self.surfel_mapper is not None:
             self.surfel_mapper.save_ply(path)
+
+    def save_map(self, path: str) -> None:
+        """Checkpoint the map (the reference's SaveMap TODO, System.h:90-92);
+        with chunks or the pipeline, call ``shutdown`` first."""
+        map_io.save_map(path, self.map)
+
+    def load_map(self, path: str) -> None:
+        """Resume from a checkpoint, into a freshly constructed System: the
+        relocalization index is rebuilt in keyframe order, and the fused
+        tracker's registries and view follow the loaded map (the view is
+        written in place, so the graphed step tracks against it)."""
+        map_io.load_map(path, self.map)
+        self.reloc_module.reset(self.map)
+        for kf in range(self.map.n_kf):
+            if self.map.kf_valid[kf]:
+                self.reloc_module.add_keyframe(kf)
+        if self.fast:
+            self.tracker.registries_from_map()
+            self.tracker.refresh_view()

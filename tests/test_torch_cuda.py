@@ -780,3 +780,79 @@ def test_modular_system_on_cuda_holds_the_e2e_bars(cuda, tmp_path):
         assert full.track(gray, depth, ts) is not None, f"corner frame {i}"
     full.shutdown()
     assert len(full.surfel_mapper.export_arrays()["pos"]) > 200
+
+
+def test_native_merge_on_cuda_extracted_stats(cuda):
+    """The C++ AHC merge on block stats extracted on the card (a 640x480
+    near_corner frame at TUM1): the Python merge's partition, and
+    extract_planes(method="ahc") on the card with the CPU's valid count."""
+    cfg = load_config(str(Path(__file__).resolve().parent.parent / "configs" / "TUM1.yaml"))
+    depth = _view_depths(cfg, "near_corner", [0])[0]
+    K = torch.as_tensor(np.asarray(cfg.camera.K, np.float32))
+    _, packed = planes.plane_stage1(depth.to(cuda), K.to(cuda))
+    st = planes.unpack_stats(packed.cpu().numpy())
+    grid, min_support = (24, 32), int(0.04 * 240 * 320)
+    lab_cc = planes.merge_blocks(st, grid, min_support)
+    lab_py = planes.merge_blocks_py(st, grid, min_support)
+    remap = {}
+    for a, b in zip(lab_cc, lab_py):
+        assert (a < 0) == (b < 0) and remap.setdefault(a, b) == b
+    card = planes.extract_planes(depth.to(cuda), K, 8, 512, method="ahc")
+    host = planes.extract_planes(depth, K, 8, 512, method="ahc", device="cpu")
+    assert card["valid"].sum() == host["valid"].sum() >= 3
+    np.testing.assert_allclose(card["coeffs"][card["valid"]], host["coeffs"][host["valid"]],
+                               atol=1e-3)
+
+
+def test_batched_track_step_b2_matches_b1_on_cuda(cuda):
+    """parallel/mesh.py's sharded step at B = 2 (a mesh of the card twice)
+    against two B = 1 steps; each kernel launched once per shard."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=3, cam=cfg.camera, view="corner")
+    frames = [seq.frame(i) for i in range(3)]
+    feats = frame.build_extractor(cfg, cuda)(torch.from_numpy(np.round(frames[0][1])).to(cuda),
+                                             torch.from_numpy(frames[0][2]).to(cuda))
+    bank = {"pos": frame.backproject_keypoints(feats, cfg), "desc": feats["desc"],
+            "valid": feats["valid"] & (feats["depth"] > 0), "level": feats["level"]}
+    gray = torch.from_numpy(np.round(np.stack([frames[1][1], frames[2][1]])).astype(np.float32))
+    depth = torch.from_numpy(np.stack([frames[1][2], frames[2][2]]).astype(np.float32))
+    seeds = torch.from_numpy(np.stack([np.linalg.inv(seq.poses[i]) @ seq.poses[0]
+                                       for i in range(2)]).astype(np.float32))
+    bank2 = {k: torch.stack([v, v]) for k, v in bank.items()}
+    before = _launches()
+    out = mesh.build_batched_track_step(cfg, mesh.make_mesh(devices=[cuda, cuda]))(
+        gray, depth, seeds, bank2)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (2, 2, 2)
+    for i in range(2):
+        one = mesh.build_batched_track_step(cfg, mesh.make_mesh(1))(
+            gray[i:i + 1], depth[i:i + 1], seeds[i:i + 1], {k: v[None] for k, v in bank.items()})
+        T, T1 = out["T"][i].cpu().numpy(), one["T"][0].cpu().numpy()
+        assert np.abs(T[:3, 3] - T1[:3, 3]).max() < 1e-3
+        assert np.abs(T[:3, :3] - T1[:3, :3]).max() < 1e-3
+        assert int(out["n_inliers"][i]) == int(one["n_inliers"][0]) > 50
+
+
+def test_load_map_then_graphed_tracking_on_cuda(cuda, tmp_path):
+    """A map saved after 8 frames, loaded into a fresh System: the loaded
+    tables equal, and the next frames tracked from the graphed step
+    against the refreshed view."""
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="corner")
+    first = System(cfg, fast=True, enable_surfels=False)
+    for i in range(8):
+        ts, gray, depth = seq.frame(i)
+        assert first.track(gray, depth, ts) is not None
+    p = str(tmp_path / "map.npz")
+    first.save_map(p)
+    second = System(cfg, fast=True, enable_surfels=False)
+    second.load_map(p)
+    for k in ("mp_pos", "kf_pose", "kf_mp_idx", "pl_coeffs"):
+        np.testing.assert_array_equal(getattr(second.map, k), getattr(first.map, k))
+    tr = second.tracker
+    tr.state, tr.frame_id, tr.T_cw = "LOST", 100, first.tracker.T_cw.copy()
+    second.activate_localization_mode()
+    for i in range(8, 12):
+        ts, gray, depth = seq.frame(i)
+        assert second.track(gray, depth, 100.0 + i) is not None, i
+    assert tr.step.graph is not None

@@ -21,7 +21,8 @@ carried into a reference SlamMap with convert.map_to_numpy.
 - ``LineModule``: given the same frame lines, match (associations and
   the map lines' visible / found counts), line_observations and
   on_keyframe equal.
-- ``extract_planes(method="ahc")`` raises NotImplementedError.
+- ``extract_planes(method="ahc")`` runs on the port (held against the
+  reference in tests/test_torch_ahc.py); an unknown method raises.
 """
 
 import jax.numpy as jnp
@@ -195,9 +196,13 @@ def test_extract_planes_matches_reference(small_cfg, plane_frames, case):
 
 
 def test_extract_planes_ahc_not_ported(plane_frames, small_cfg):
+    """The exact AHC merge is ported now: method="ahc" finds the corner's
+    planes on the CPU; a method that is neither raises."""
     depth = plane_frames[0][1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        planes.extract_planes(depth, small_cfg.camera.K, 8, 64, method="ahc")
+    out = planes.extract_planes(depth, small_cfg.camera.K, 8, 64, method="ahc", device=CPU)
+    assert out["valid"].sum() >= 2
+    with pytest.raises(ValueError, match="method"):
+        planes.extract_planes(depth, small_cfg.camera.K, 8, 64, method="peac", device=CPU)
 
 
 def test_extract_planes_needs_cuda_unless_cpu_is_asked(plane_frames, small_cfg):

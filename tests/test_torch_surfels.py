@@ -453,7 +453,8 @@ def test_frame_slot_keeps_membership_only_for_surfels(small_cfg, corner_seq, sur
 
 
 def test_system_defaults_match_reference():
-    names = ("enable_planes", "enable_lines", "enable_surfels", "fast", "pipeline", "chunk")
+    names = ("use_viewer", "enable_planes", "enable_lines", "enable_surfels", "fast", "pipeline",
+             "chunk")
     ref = inspect.signature(JaxSystem.__init__).parameters
     port = inspect.signature(System.__init__).parameters
     assert {n: port[n].default for n in names} == {n: ref[n].default for n in names}
