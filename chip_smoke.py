@@ -246,10 +246,12 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from manhattanslam_tpu_torch import tracing
 from manhattanslam_tpu_torch.config import CameraConfig, SlamConfig, load_config
 from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
+from manhattanslam_tpu_torch.frontend.fast_tracking import SECTIONS
 from manhattanslam_tpu_torch.frontend.graphed_step import GraphedStep, clone_tree
 from manhattanslam_tpu_torch.io import trajectory as traj_io
 from manhattanslam_tpu_torch.mapping.surfel_mapping import SurfelMapper, plane_mask
@@ -732,16 +734,42 @@ def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str,
     return out
 
 
+# the System's host spans of a keyframe's hooks
+KF_HOOKS = ("keyframe.local_mapper", "keyframe.reloc_add", "keyframe.surfel_insert")
+
+
+def host_sections(system, since: dict | None = None) -> dict:
+    """The tracker's host sections (FastTracker.perf) since the snapshot
+    `since` (all when None): {section: [ms, events]}."""
+    snap = system.trace.snapshot()
+    if since is not None:
+        snap = tracing.diff(since, snap)
+    return {k: [round(s * 1e3, 1), n] for k, (s, n) in sorted(tracing.by_leaf(snap, SECTIONS).items())}
+
+
+def span_seconds(system, name: str) -> float:
+    """Host seconds of the System's spans named `name`, wherever they nest."""
+    return tracing.by_leaf(system.trace.snapshot(), (name,)).get(name, (0.0, 0))[0]
+
+
 def backend_report(system) -> str:
     """The back end's host ms per keyframe event, in all and by stage, and
     its counts."""
     lm = system.local_mapper
     n = max(lm.counts["events"], 1)
-    stages = {k: round(v * 1e3 / n, 3) for k, v in lm.perf.items()}
-    total = sum(system.kf_perf.values()) * 1e3 / n
+    snap = system.trace.snapshot()
+    stages = {}
+    for path, (s, _, _) in snap["spans"].items():
+        parent, _, stage = path.rpartition("/")
+        if parent.rpartition("/")[2] == "keyframe.local_mapper":
+            stages[stage] = stages.get(stage, 0.0) + s
+    stages = {k: round(v * 1e3 / n, 3) for k, v in stages.items()}
+    hooks = tracing.by_leaf(snap, KF_HOOKS)
+    total = sum(s for s, _ in hooks.values()) * 1e3 / n
+    reloc_add = hooks.get("keyframe.reloc_add", (0.0, 0))[0]
     return (f"back end {total:.2f} ms per keyframe event over {lm.counts['events']} events "
             f"(LocalMapper by stage {stages}, relocalization index "
-            f"{system.kf_perf['reloc_add'] * 1e3 / n:.3f} ms); "
+            f"{reloc_add * 1e3 / n:.3f} ms); "
             f"mapper {dict(lm.counts)}, tracker {dict(system.tracker.counts)}")
 
 
@@ -1124,8 +1152,7 @@ def _chunk_run(cfg, seq, frames, tmp: str, chunk: int, pipeline: bool, name: str
     torch.cuda.synchronize()
     n0 = sum(not r.lost for r in tr.records)
     kf0 = tr.counts["keyframes"]
-    tr.perf.clear()
-    tr.perf_n.clear()
+    since = system.trace.snapshot()
     marks = [time.perf_counter()]
     for w in range(CHUNK_WINDOWS):
         lo = CHUNK_WARM + w * CHUNK_WINDOW
@@ -1154,7 +1181,7 @@ def _chunk_run(cfg, seq, frames, tmp: str, chunk: int, pipeline: bool, name: str
     gt = seq.gt_rows()
     ate = traj_io.ate_rmse(
         (ts_e, pos_e), (np.array([r[0] for r in gt]), np.array([r[1] for r in gt])))
-    perf = {k: [round(v * 1e3, 1), tr.perf_n[k]] for k, v in sorted(tr.perf.items())}
+    perf = host_sections(system, since)
     med = statistics.median(windows)
     return {"system": system, "windows": windows, "ms": med, "n_ok": n_ok, "n_timed": n_timed,
             "ate": ate, "keyframes": tr.counts["keyframes"], "kf_timed": tr.counts["keyframes"] - kf0,
@@ -1285,7 +1312,7 @@ def _chunk_walk(cfg, tmp: str) -> dict:
         f"{n_ok} tracked, ATE {ate:.4f} m, keyframes made {tr.counts['keyframes']} (live at "
         f"frames {kf}), relocalized {tr.counts['relocalized']}; frames run on the card "
         f"{tr.step.calls} (the last chunk padded); host ms [total, events] "
-        f"{ {k: [round(v * 1e3, 1), tr.perf_n[k]] for k, v in sorted(tr.perf.items())} }; "
+        f"{host_sections(system)}; "
         f"{backend_report(system)}")
     if len(tr.records) != N_MAP or n_ok < TRACKED_SHARE * N_MAP:
         raise RuntimeError(f"chunk_walk: {len(tr.records)} frames recorded, {n_ok} tracked")
@@ -1567,7 +1594,8 @@ def phase_surfels(tmp: str, smi: str) -> dict:
     tr.flush()
     system.warmup()
     torch.cuda.synchronize()
-    kf0, ins0, ins_s0 = tr.counts["keyframes"], len(inserts), system.kf_perf["surfel_insert"]
+    kf0, ins0 = tr.counts["keyframes"], len(inserts)
+    ins_s0, since = span_seconds(system, "keyframe.surfel_insert"), system.trace.snapshot()
     marks = [time.perf_counter()]
     for w in range(SURFEL_WINDOWS):
         lo = CHUNK_WARM + w * SURFEL_WINDOW
@@ -1581,7 +1609,7 @@ def phase_surfels(tmp: str, smi: str) -> dict:
     windows = [(b - a) * 1e3 / SURFEL_WINDOW for a, b in zip(marks, marks[1:])]
     kf_timed = tr.counts["keyframes"] - kf0
     ins_timed = len(inserts) - ins0
-    host_ms = (system.kf_perf["surfel_insert"] - ins_s0) * 1e3 / max(ins_timed, 1)
+    host_ms = (span_seconds(system, "keyframe.surfel_insert") - ins_s0) * 1e3 / max(ins_timed, 1)
     traj = os.path.join(tmp, "CameraTrajectory_surfels.txt")
     system.save_trajectory_tum(traj)
     ts_e, pos_e, _ = traj_io.load_trajectory_tum(traj)
@@ -1614,7 +1642,7 @@ def phase_surfels(tmp: str, smi: str) -> dict:
         f"{_yield_report(y, len(inserts))}; exported vertices inside the room {inside:.4f}"
         f"{' (the map planes alone)' if not y['surfels_exported'] else ''}")
     log(f"surfels: host ms [total, events] in the timed region "
-        f"{ {k: [round(v * 1e3, 1), tr.perf_n[k]] for k, v in sorted(tr.perf.items())} }; "
+        f"{host_sections(system, since)}; "
         f"{backend_report(system)}")
     log(f"surfels: {_check_surfel_ops(cfg, dev, system, inserts, seq)}")
     if ins_timed < 1:
@@ -1676,7 +1704,7 @@ def phase_modular(tmp: str, smi: str) -> dict:
         f"{int(m.ml_valid.sum())}; {_yield_report(y, len(inserts))}; kernel launches {launches}")
     log(f"modular: {backend_report(system)}; surfel inserts "
         f"{system.surfel_mapper.n_keyframes}, host ms per insert "
-        f"{system.kf_perf['surfel_insert'] * 1e3 / max(system.surfel_mapper.n_keyframes, 1):.2f}")
+        f"{span_seconds(system, 'keyframe.surfel_insert') * 1e3 / max(system.surfel_mapper.n_keyframes, 1):.2f}")
     if tracked != N_MODULAR or not ate < ATE_LIMIT:
         raise RuntimeError(f"modular: {tracked} of {N_MODULAR} frames tracked, ATE {ate} m")
     if manhattan < MANHATTAN_FRAMES:

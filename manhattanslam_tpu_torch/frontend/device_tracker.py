@@ -38,6 +38,9 @@ the landmark statistics on the device, for one copy per chunk
 lazily (``pull_kfx``, ``pull_payload``).  On the card the frame step runs
 from a CUDA graph (frontend/graphed_step.py), so nothing here may replace
 a tensor the graph reads: the view and the carry are written in place.
+The body marks the end of each branch with ``tracing.mark`` (extract,
+candidate_solves, planes, manhattan_solve, lines, final_solve), for
+``GraphedStep.branch_times``; a mark is a no-op outside that timing.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import math
 import numpy as np
 import torch
 
+from manhattanslam_tpu_torch import tracing
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.frontend import tracking_ops
 from manhattanslam_tpu_torch.frontend.frame import build_extractor
@@ -537,6 +541,7 @@ def build_batched_body(
             return x.expand((B,) + x.shape)
 
         feats = extract(gray, depth)
+        tracing.mark("extract")
         T_last = carry["T_last"]
         have_vel = carry["have_velocity"]
         T_seed = torch.where(have_vel[:, None, None], carry["velocity"] @ T_last, T_last)
@@ -616,6 +621,7 @@ def build_batched_body(
         ok_c = n_c >= 10
         T_init = torch.where(ok_ab[:, None, None], T_ab, T_c)
         init_ok = ok_ab | ok_c
+        tracing.mark("candidate_solves")
 
         no = torch.zeros(B, dtype=torch.bool, device=device)
         man_found = use_manh = no
@@ -638,6 +644,7 @@ def build_batched_body(
                 _f32(pc.mf_vertical_threshold),
             )
             plane_obs = build_plane_obs_device(planes["coeffs"], assoc, par, ver, view)
+            tracing.mark("planes")
 
             # the Manhattan decoupled translation-only re-solve from the
             # Manhattan rotation (Tracking.cc:846-944): by projection
@@ -664,6 +671,7 @@ def build_batched_body(
             use_manh = man_found & (ok_t | (fallback & (n_t2 >= 7)))
             T_man = torch.where(ok_t[:, None, None], T_t, T_t2)
             T_mid = torch.where(use_manh[:, None, None], T_man, T_init)
+            tracing.mark("manhattan_solve")
             plane_out = {
                 "new_plane": (planes["valid"] & (assoc < 0)).any(-1),
                 "plane_coeffs": planes["coeffs"],
@@ -689,6 +697,7 @@ def build_batched_body(
                 det, ldesc, T_init, view, K, hw, mid_px=lc.assoc_mid_px, ang_deg=lc.assoc_ang_deg,
             )
             line_obs = build_line_obs_device(det, l_assoc, view)
+            tracing.mark("lines")
             line_out = {
                 "line_sp": det["sp"],
                 "line_ep": det["ep"],
@@ -765,6 +774,9 @@ def build_batched_body(
             **plane_out,
             **line_out,
         }
+        # what the caller adds up to the end of its step (the flat buffers,
+        # the carry's copy) counts to the final solve
+        tracing.mark("final_solve")
         return result, new_carry
 
     return body
@@ -1074,7 +1086,8 @@ def chunk_flat(core_flat: torch.Tensor, stats: dict) -> torch.Tensor:
 
 
 def build_chunk_step(cfg: SlamConfig, device, enable_planes: bool = False,
-                     enable_lines: bool = False, frame_step=None):
+                     enable_lines: bool = False, frame_step=None,
+                     trace: tracing.Recorder | None = None):
     """Returns chunk(gray8 (C,H,W) uint8, d16 (C,H,W) int32, carry, view,
     out=None) -> (results, carry): the C frames through the frame step in
     order (the reference's ``lax.scan``), against one view.  The landmark
@@ -1084,21 +1097,27 @@ def build_chunk_step(cfg: SlamConfig, device, enable_planes: bool = False,
     chunk's one pull.  `frame_step` is the frame step to run (a
     ``GraphedStep`` on the card), ``build_frame_step``'s by default.
     ``chunk.layouts`` holds the frame result's ``flat_layouts`` after the
-    first call."""
+    first call.  Host spans in `trace`: ``stats`` (the statistics),
+    ``copy_out`` (a frame's outputs into `out`) and ``flat`` (the pull's
+    buffer)."""
     step = frame_step or build_frame_step(cfg, device, enable_planes, enable_lines)
+    trace = trace if trace is not None else tracing.Recorder()
 
     def chunk(gray8, d16, carry, view, out=None):
         stats = init_stats(cfg, device)
         for i in range(gray8.shape[0]):
             result, carry = step(gray8[i], d16[i], carry, view)
-            accumulate_stats_(stats, result)
-            lite = keep(result, CHUNK_KEEP)
-            if out is None:
-                out = empty_slot(lite, (gray8.shape[0],))
-            copy_tree_(slot_row(out, i), lite)
+            with trace.span("stats"):
+                accumulate_stats_(stats, result)
+            with trace.span("copy_out"):
+                lite = keep(result, CHUNK_KEEP)
+                if out is None:
+                    out = empty_slot(lite, (gray8.shape[0],))
+                copy_tree_(slot_row(out, i), lite)
         if chunk.layouts is None:
             chunk.layouts = flat_layouts(result)
-        out["chunk_flat"] = chunk_flat(out["core_flat"], stats)
+        with trace.span("flat"):
+            out["chunk_flat"] = chunk_flat(out["core_flat"], stats)
         return out, carry
 
     chunk.layouts = None

@@ -47,23 +47,29 @@ into a ring of ``pipeline_depth + 1`` output slots first, and the
 staging ring has as many slots.  Keyframe payloads are copied on a side
 stream, so they do not wait behind the frames in flight.
 
-Host seconds per section are kept in ``perf`` (events in ``perf_n``):
-frame or chunk dispatch, summary pull, the deferred back end's join, and
-at a keyframe event the payload pull, the bookkeeping, the two view row
-diffs and the back end.
+Host spans go into ``trace`` (a ``tracing.Recorder``, the System's when
+a System made the tracker): ``intake`` (the frame to its native planes and
+into the pinned staging), ``frame_dispatch`` or ``chunk_dispatch`` (with
+the step's ``step.inputs`` and ``step.launch``, and ``stats``,
+``copy_out``, ``flat`` and ``pull``), ``summary_pull``, ``mapper_join``
+and at a keyframe event ``keyframe_event`` (``kf_payload_pull``,
+``kf_bookkeeping``, ``kf_view_diff``), ``mapping_backend`` and
+``backend_view_diff``, and ``relocalize``.  ``perf`` (host seconds) and
+``perf_n`` (events) read the sections of SECTIONS from it, wherever they
+nest; the counter ``manhattan_frames`` counts the frames whose pose the
+Manhattan path gave.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import itertools
-import time
-from collections import Counter, defaultdict
+from collections import Counter
 
 import numpy as np
 import torch
 
+from manhattanslam_tpu_torch import tracing
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend.graphed_step import GraphedStep, copy_tree_
@@ -73,6 +79,13 @@ from manhattanslam_tpu_torch.frontend.tracking import (
 from manhattanslam_tpu_torch.geometry import se3
 from manhattanslam_tpu_torch.ops.planes import transform_plane_np
 from manhattanslam_tpu_torch.slam_map import SlamMap
+
+# the host sections of ``FastTracker.perf``
+SECTIONS = (
+    "frame_dispatch", "chunk_dispatch", "summary_pull", "mapper_join", "keyframe_event",
+    "kf_payload_pull", "kf_bookkeeping", "kf_view_diff", "mapping_backend", "backend_view_diff",
+    "relocalize",
+)
 
 
 class FastTracker:
@@ -86,8 +99,10 @@ class FastTracker:
         pipeline: bool = False,
         chunk: int = 1,
         keep_membership: bool = False,
+        trace: tracing.Recorder | None = None,
     ):
         self.cfg = cfg
+        self.trace = trace if trace is not None else tracing.Recorder()
         self.map = slam_map
         self.device = torch.device(device)
         self.enable_planes = enable_planes
@@ -98,9 +113,10 @@ class FastTracker:
         # overlaps the card's work on chunk k+1
         self.pipeline_depth = 2 if (pipeline and self.chunk > 1) else 1
         self.step = GraphedStep(dt.build_frame_step(cfg, device, enable_planes, enable_lines),
-                                device)
+                                device, self.trace)
         self.chunk_step = (
-            dt.build_chunk_step(cfg, device, enable_planes, enable_lines, frame_step=self.step)
+            dt.build_chunk_step(cfg, device, enable_planes, enable_lines, frame_step=self.step,
+                                trace=self.trace)
             if self.chunk > 1 else None)
         # Manhattan registries (host source of truth; the view mirrors them)
         self.reg2, self.reg3 = dt.empty_registries(cfg)
@@ -142,8 +158,6 @@ class FastTracker:
         self._buf = []
         self._backend_job = None  # chunk mode: the deferred back end
         self._chunk_restart = False
-        self.perf = defaultdict(float)  # host seconds per section
-        self.perf_n = defaultdict(int)
         self.frame_log: list[tuple] = []  # (frame_id, n_inliers, ok, ref_matches, ref_total)
 
         self.state = NOT_INITIALIZED
@@ -176,20 +190,17 @@ class FastTracker:
         slam_map.kf_retire_callbacks.append(self._on_kf_retired)
         self._ref_matches = None  # cache; None = recompute (map/ref-KF changed)
         self._ref_total = 0
-        self.n_manhattan_frames = 0  # frames the Manhattan pose carried
         self._new_plane_streak = 0
 
-    def _timed(self, section: str):
-        @contextlib.contextmanager
-        def cm():
-            t0 = time.perf_counter()
-            try:
-                yield
-            finally:
-                self.perf[section] += time.perf_counter() - t0
-                self.perf_n[section] += 1
+    @property
+    def perf(self) -> dict[str, float]:
+        """Host seconds of each section of SECTIONS entered so far."""
+        return {k: s for k, (s, _) in tracing.by_leaf(self.trace.snapshot(), SECTIONS).items()}
 
-        return cm()
+    @property
+    def perf_n(self) -> dict[str, int]:
+        """Events of each section of SECTIONS entered so far."""
+        return {k: n for k, (_, n) in tracing.by_leaf(self.trace.snapshot(), SECTIONS).items()}
 
     # ------------------------------------------------------------------ API
     def track(self, timestamp: float, gray: np.ndarray, depth: np.ndarray):
@@ -201,25 +212,31 @@ class FastTracker:
             # (UpdateLastFrame, Tracking.cc:1052)
             self.carry["vo_points"].fill_(self.only_tracking)
             self._vo_flag = self.only_tracking
-        g8, d16 = dt.to_native(gray, depth)
-        if self.state == NOT_INITIALIZED:
+        initialized = self.state != NOT_INITIALIZED
+        with self.trace.span("intake"):
+            g8, d16 = dt.to_native(gray, depth)
+            if initialized and self.chunk > 1:
+                self._buf_append((timestamp, self.frame_id, g8, d16, gray, depth))
+            elif initialized:
+                g8s, d16s = self._next_stage()
+                g8s.numpy()[...] = g8
+                d16s.numpy()[...] = d16
+        if not initialized:
             self._initialize(timestamp, g8, d16, (gray, depth))
             self._record(timestamp, lost=False)
             return self.T_cw.copy()
         if self.chunk > 1:
-            self._buf_append((timestamp, self.frame_id, g8, d16, gray, depth))
             if len(self._buf) < self.chunk:
                 return None
             return self._dispatch_chunk()
-        with self._timed("frame_dispatch"):
-            g8s, d16s = self._next_stage()
-            g8s.numpy()[...] = g8
-            d16s.numpy()[...] = d16
+        with self.trace.span("frame_dispatch"):
             result, self.carry = self.step(g8s, d16s, self.carry, self.view)
             if self.layouts is None:  # no first frame: a map loaded from a checkpoint
                 self.layouts = dt.flat_layouts(result)
-            slot = self._to_slot(result)
-            pulled = dt.HostPull([slot["summary_flat"]])
+            with self.trace.span("copy_out"):
+                slot = self._to_slot(result)
+            with self.trace.span("pull"):
+                pulled = dt.HostPull([slot["summary_flat"]])
         self.last_result = result
         pend = functools.partial(self._finish_frame, timestamp, self.frame_id, (gray, depth),
                                  slot, pulled=pulled)
@@ -282,7 +299,7 @@ class FastTracker:
         """Enqueue the staged chunk: C replays into the next output slot,
         then its one pull (cores and counts) and the keyframe extras, both
         without blocking.  Returns (results, pull, view epoch)."""
-        with self._timed("chunk_dispatch"):
+        with self.trace.span("chunk_dispatch"):
             g8s, d16s = self._next_stage()
             i = self._out_i
             self._out_i = (i + 1) % len(self._out)
@@ -291,7 +308,8 @@ class FastTracker:
             self._out[i] = results
             if self.layouts is None:  # no first frame: a map loaded from a checkpoint
                 self.layouts = self.chunk_step.layouts
-            pulled = dt.HostPull([results["chunk_flat"], results["kfx_flat"]])
+            with self.trace.span("pull"):
+                pulled = dt.HostPull([results["chunk_flat"], results["kfx_flat"]])
         self.last_result = results
         return results, pulled, self._view_applied_epoch
 
@@ -299,7 +317,7 @@ class FastTracker:
         metas, self._buf = self._buf, []
         pend = (metas, *self._enqueue_chunk())
         # the previous keyframe's back end runs while the card computes
-        with self._timed("mapper_join"):
+        with self.trace.span("mapper_join"):
             self.join_mapper()
         if self.pipeline:
             self._pending.append(pend)
@@ -310,11 +328,11 @@ class FastTracker:
 
     def _process_chunk(self, metas, results, pulled, epoch):
         c = self.cfg.caps
-        with self._timed("summary_pull"):
+        with self.trace.span("summary_pull"):
             flat, kfx = pulled.wait()
             cores, stats = dt.parse_chunk_summary(
                 flat, self.chunk, self.layouts["core"], c.max_map_points, c.max_map_lines)
-        with self._timed("mapper_join"):
+        with self.trace.span("mapper_join"):
             self.join_mapper()
         # the chunk's landmark statistics, counted on the device
         m = self.map
@@ -369,7 +387,7 @@ class FastTracker:
         chunk mode passes the core of frame `idx`), the relocalization of
         a lost frame, the landmark statistics, the keyframe decision."""
         if s is None:
-            with self._timed("summary_pull"):
+            with self.trace.span("summary_pull"):
                 s = dt.pull_summary(result, self.layouts["summary"], pulled)
         ok = bool(s["tracked_ok"])
         # within one fps window of a relocalization the reference asks for
@@ -403,7 +421,7 @@ class FastTracker:
         self.n_map_inliers = int(s["n_map_inliers"])
         self.n_ok_frames += 1
         if bool(s.get("use_manhattan", False)):
-            self.n_manhattan_frames += 1
+            self.trace.count("manhattan_frames")
         if idx is None:
             self.last_mp_idx = s["kp_mp"]
             # landmark statistics (MapPoint::IncreaseVisible / IncreaseFound;
@@ -486,12 +504,12 @@ class FastTracker:
         return decision
 
     def _create_keyframe(self, timestamp, result, s, frame_id, frame, idx=None) -> None:
-        with self._timed("keyframe_event"):
+        with self.trace.span("keyframe_event"):
             m = self.map
-            with self._timed("kf_payload_pull"):
+            with self.trace.span("kf_payload_pull"):
                 payload = dt.pull_payload(result, idx, self.layouts["payload"],
                                           self._pull_stream)
-            with self._timed("kf_bookkeeping"):
+            with self.trace.span("kf_bookkeeping"):
                 feats_np = payload["feats"]
                 self.counts["slots_reused"] += bool(m.kf_free)
                 kf_id = m.add_keyframe(self.T_cw, timestamp, frame_id, feats_np)
@@ -514,7 +532,7 @@ class FastTracker:
             # next frame or chunk enqueued tracks against them; frames
             # already in flight keep their older epoch and mint nothing
             self._view_epoch += 1
-            with self._timed("kf_view_diff"):
+            with self.trace.span("kf_view_diff"):
                 self._refresh_view_apply()
         job = functools.partial(self._backend, kf_id, kf_frame)
         if self.chunk > 1:
@@ -538,9 +556,9 @@ class FastTracker:
         the view refresh that carries their landmarks to the device."""
         if self.on_keyframe is None:
             return
-        with self._timed("mapping_backend"):
+        with self.trace.span("mapping_backend"):
             self.on_keyframe(kf_id, kf_frame)
-        with self._timed("backend_view_diff"):
+        with self.trace.span("backend_view_diff"):
             self._refresh_view_apply()
 
     def _create_points_from_depth(self, feats_np, kf_id, existing, max_new=100):
@@ -767,7 +785,7 @@ class FastTracker:
         if self.reloc_module is None:
             return False
         self.join_mapper()  # the relocalizer reads the whole map
-        with self._timed("relocalize"):
+        with self.trace.span("relocalize"):
             feats = result["feats"] if idx is None else dt.slot_row(result["feats"], idx)
             T = self.reloc_module.relocalize(feats)
             if T is None:

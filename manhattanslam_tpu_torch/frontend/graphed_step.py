@@ -30,12 +30,21 @@ stays the number of times the card ran the kernel.
 The result of a replay lives in the graph's own memory and is
 overwritten by the next replay: whatever is read after the next call must
 be copied out first (``FastTracker`` keeps a ring of output slots).
+
+Each call records two host spans in ``trace`` (a ``tracing.Recorder``):
+``step.inputs``, the copies of the frames and of a carry that is not the
+static one into the graph's inputs, and ``step.launch``, the graph's
+replay (on the CPU, and on the card's first call, the eager step); the
+capture is ``step.capture``.  ``branch_times`` captures the step a second
+time, with the branch marks of ``tracing.mark`` as timing events, and
+replays that graph alone: the production graph holds no mark.
 """
 
 from __future__ import annotations
 
 import torch
 
+from manhattanslam_tpu_torch import tracing
 from manhattanslam_tpu_torch.ops import fast as fast_ops
 from manhattanslam_tpu_torch.ops import orb as orb_ops
 
@@ -79,12 +88,14 @@ class GraphedStep:
     # graph replays of every GraphedStep in the process
     replays = 0
 
-    def __init__(self, step, device):
+    def __init__(self, step, device, trace: tracing.Recorder | None = None):
         self.step = step
         self.device = torch.device(device)
+        self.trace = trace if trace is not None else tracing.Recorder()
         self.graph = None
+        self.nodes = None  # the graph's nodes (device operations of a replay), if the driver tells
         self.carry = None  # the static carry
-        self._frames = None  # the static frame inputs (CUDA)
+        self._frames = None  # the static frame inputs (the last frames on the CPU)
         self._view_ptrs = None
         self._out = None  # the captured result (CUDA)
         self._captured = None  # launches of each counted wrapper in one step
@@ -110,25 +121,28 @@ class GraphedStep:
         *frames, carry, view = args
         self.calls += 1
         self._check_view(view)
-        carry = self._take_carry(carry)
-        if self.device.type != "cuda":
-            result, new_carry = self.step(*frames, carry, view)
-            copy_tree_(carry, new_carry)
-            return result, carry
-        if self._frames is None:
-            self._frames = [f.to(self.device, copy=True) for f in frames]
-        else:
-            for dst, src in zip(self._frames, frames):
-                if src is not dst:
-                    dst.copy_(src, non_blocking=True)
-        if self.graph is None and self.calls == 1:
-            # the eager first call: builds every lazy constant before capture
-            result, new_carry = self.step(*self._frames, carry, view)
-            copy_tree_(carry, new_carry)
+        cuda = self.device.type == "cuda"
+        with self.trace.span("step.inputs"):
+            carry = self._take_carry(carry)
+            if not cuda:
+                self._frames = frames
+            elif self._frames is None:
+                self._frames = [f.to(self.device, copy=True) for f in frames]
+            else:
+                for dst, src in zip(self._frames, frames):
+                    if src is not dst:
+                        dst.copy_(src, non_blocking=True)
+        if not cuda or (self.graph is None and self.calls == 1):
+            # the CPU's every call, the card's eager first one (it builds every
+            # lazy constant before the capture)
+            with self.trace.span("step.launch"):
+                result, new_carry = self.step(*self._frames, carry, view)
+                copy_tree_(carry, new_carry)
             return result, carry
         if self.graph is None:
             self.capture(view)
-        self.graph.replay()
+        with self.trace.span("step.launch"):
+            self.graph.replay()
         GraphedStep.replays += 1
         for fn, n in zip(COUNTED, self._captured):
             fn.launches += n
@@ -142,11 +156,55 @@ class GraphedStep:
             raise RuntimeError("GraphedStep.capture: call the step once before capturing it")
         before = [fn.launches for fn in COUNTED]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with self.trace.span("step.capture"), torch.cuda.graph(graph):
             result, new_carry = self.step(*self._frames, self.carry, view)
             # the last node: the new carry into the static carry
             copy_tree_(self.carry, new_carry)
+            self.nodes = tracing.capture_nodes()
         self._captured = [fn.launches - b for fn, b in zip(COUNTED, before)]
         for fn, b in zip(COUNTED, before):
             fn.launches = b  # a capture launches nothing
         self.graph, self._out = graph, result
+
+    def branch_times(self, view: dict, reps: int = 10) -> dict[str, dict]:
+        """{branch: {"ms": device ms per run, "ops": device operations per
+        run}} for each branch the step marks (``tracing.mark``), in order,
+        on the static inputs of the last call.  On the card the step is
+        captured a second time with a timing event at each mark, and that
+        graph is replayed `reps` times, each replay waited for; ``ops``
+        counts each branch's nodes at that capture.  On the CPU the eager
+        step runs `reps` times, timed by the host clock (``ops`` None).
+        Both write a copy of the static carry: the production graph, the
+        static carry and the step's outputs stay as they were."""
+        if self.carry is None or self._frames is None:
+            raise RuntimeError("GraphedStep.branch_times: call the step once first")
+        self._check_view(view)
+        cuda = self.device.type == "cuda"
+        carry = clone_tree(self.carry)
+        before = [fn.launches for fn in COUNTED]
+
+        def run(timing):
+            timing.start()
+            _, new_carry = self.step(*self._frames, carry, view)
+            copy_tree_(carry, new_carry)
+            timing.end()
+
+        runs = []
+        if cuda:
+            graph = torch.cuda.CUDAGraph()
+            with tracing.BranchTiming(cuda=True) as timing, torch.cuda.graph(graph):
+                run(timing)
+            for _ in range(reps):
+                graph.replay()
+                torch.cuda.synchronize(self.device)
+                runs.append(timing.times_ms())
+        else:
+            for _ in range(reps):
+                with tracing.BranchTiming(cuda=False) as timing:
+                    run(timing)
+                runs.append(timing.times_ms())
+        for fn, b in zip(COUNTED, before):
+            fn.launches = b  # the timing's launches are not the program's
+        ops = timing.ops
+        return {name: {"ms": sum(r[name] for r in runs) / len(runs), "ops": ops[name]}
+                for name in runs[0]}

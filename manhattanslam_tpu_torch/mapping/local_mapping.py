@@ -19,17 +19,19 @@ device programs (mapping/triangulation.py) take a stack of neighbours
 and of fusion targets; the reference's caps stay (10 neighbours, 24
 targets, ``max_local_points`` landmarks a bank), but the stacks are not
 padded to them: an eager torch program compiles nothing per shape, and
-a padding row matches nothing.
+a padding row matches nothing.  Each stage is a host span of ``trace``
+(a ``tracing.Recorder``, the System's when a System made the mapper),
+named after its method.
 """
 
 from __future__ import annotations
 
-import time
-from collections import Counter, defaultdict
+from collections import Counter
 
 import numpy as np
 import torch
 
+from manhattanslam_tpu_torch import tracing
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.frontend.device_tracker import to_device
 from manhattanslam_tpu_torch.mapping import triangulation as tri
@@ -78,14 +80,15 @@ class LocalMapper:
     N_TRI_NEIGHBORS = 10  # triangulation neighbours a keyframe event
     N_TG = 24  # fusion targets a keyframe event
 
-    def __init__(self, cfg: SlamConfig, slam_map: SlamMap, device: torch.device):
+    def __init__(self, cfg: SlamConfig, slam_map: SlamMap, device: torch.device,
+                 trace: tracing.Recorder | None = None):
         self.cfg = cfg
         self.map = slam_map
         self.device = device
         self.K = torch.as_tensor(cfg.camera.K, dtype=torch.float32, device=device)
         # recently added points on probation: (map point id, birth keyframe)
         self.recent_points: list[tuple[int, int]] = []
-        self.perf = defaultdict(float)  # host seconds per stage
+        self.trace = trace if trace is not None else tracing.Recorder()
         # events, and points erased, triangulated, fused (new observations)
         # and merged (duplicates dropped), keyframes, planes and lines culled
         self.counts = Counter()
@@ -106,9 +109,8 @@ class LocalMapper:
             self.cull_map_planes,
             self.cull_map_lines,
         ):
-            t0 = time.perf_counter()
-            stage(kf_id)
-            self.perf[stage.__name__] += time.perf_counter() - t0
+            with self.trace.span(stage.__name__):
+                stage(kf_id)
 
     def create_and_fuse(self, kf_id: int) -> None:
         """CreateNewMapPoints and SearchInNeighbors with one transfer: both

@@ -145,7 +145,10 @@ def build_throughput_step(cfg: SlamConfig, batch: int, device=None):
     units, carry (batched), view (shared)) -> (result, new_carry): each
     result value has a leading axis of `batch` streams, ``manhattan_found``
     and ``use_manhattan`` as the plane branch computes them and
-    ``line_assoc`` as the line branch does."""
+    ``line_assoc`` as the line branch does.  ``step.graphed`` is its
+    ``GraphedStep`` (``branch_times``; the host spans ``step.inputs``,
+    ``step.launch`` and ``clone_out``, the copies of the result and the
+    carry, in ``step.graphed.trace``)."""
     device = resolve_device(device)
     body = dt.build_batched_body(cfg, device, enable_planes=True, enable_lines=True)
     hw = (cfg.camera.height, cfg.camera.width)
@@ -165,8 +168,10 @@ def build_throughput_step(cfg: SlamConfig, batch: int, device=None):
         if gray8.device.type != device.type or d16.device.type != device.type:
             raise ValueError(f"throughput step: frames must be on {device}")
         result, new_carry = graphed(gray8, d16, carry, view)
-        return clone_tree(result), clone_tree(new_carry)
+        with graphed.trace.span("clone_out"):
+            return clone_tree(result), clone_tree(new_carry)
 
+    step.graphed = graphed
     return step
 
 

@@ -18,7 +18,10 @@ frames, and, with surfels on, into the surfel map (``SurfelMapper``),
 built from the keyframe's own gray and depth; all of it runs on the
 calling thread.  ``use_viewer`` keeps a headless ``Viewer`` up to date
 after every frame; ``save_map`` / ``load_map`` checkpoint the map and
-resume from it (``io/map_io.py``).
+resume from it (``io/map_io.py``).  ``trace`` (a ``tracing.Recorder``)
+holds the host spans of the fused tracker, of ``intake`` (the colour to
+grey) and of each keyframe's hooks: ``keyframe.local_mapper`` (with the
+back end's stages), ``keyframe.reloc_add`` and ``keyframe.surfel_insert``.
 
 The system runs on CUDA unless ``device`` says otherwise; with no GPU it
 raises rather than falling back to the CPU.
@@ -26,12 +29,9 @@ raises rather than falling back to the CPU.
 
 from __future__ import annotations
 
-import time
-from collections import defaultdict
-
 import numpy as np
 
-from manhattanslam_tpu_torch import resolve_device
+from manhattanslam_tpu_torch import resolve_device, tracing
 from manhattanslam_tpu_torch.config import SlamConfig, load_config
 from manhattanslam_tpu_torch.datasets.tum import to_gray
 from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
@@ -72,11 +72,11 @@ class System:
         self.pipeline = pipeline
         self.chunk = chunk
         self.map = SlamMap(self.cfg)
-        self.local_mapper = LocalMapper(self.cfg, self.map, self.device)
+        self.trace = tracing.Recorder()
+        self.local_mapper = LocalMapper(self.cfg, self.map, self.device, self.trace)
         self.reloc_module = Relocalizer(self.cfg, self.map, self.device)
         self.surfel_mapper = (SurfelMapper(self.cfg, self.map, self.device)
                               if enable_surfels else None)
-        self.kf_perf = defaultdict(float)  # host seconds of the keyframe hooks
         self.n_resets = 0
         self.use_viewer = use_viewer
         self.viewer = None
@@ -91,7 +91,7 @@ class System:
             tracker = FastTracker(
                 self.cfg, self.map, self.device, self.enable_planes, self.enable_lines,
                 pipeline=self.pipeline, chunk=self.chunk,
-                keep_membership=self.surfel_mapper is not None)
+                keep_membership=self.surfel_mapper is not None, trace=self.trace)
         else:
             tracker = Tracker(self.cfg, self.map, self.device)
             if old is not None:
@@ -121,7 +121,8 @@ class System:
                 f"frame shape mismatch: rgb {rgb.shape[:2]}, depth "
                 f"{depth.shape[:2]}, settings expect {expected}"
             )
-        gray = rgb.astype(np.float32) if rgb.ndim == 2 else to_gray(rgb, self.cfg.camera.rgb)
+        with self.trace.span("intake"):
+            gray = rgb.astype(np.float32) if rgb.ndim == 2 else to_gray(rgb, self.cfg.camera.rgb)
         T = self.tracker.track(timestamp, gray, depth)
         if self.tracker.request_reset:
             # lost with <=5 keyframes: automatic full reset (Tracking.cc:517-523)
@@ -165,18 +166,15 @@ class System:
         """A new keyframe: the mapping back end, the relocalization index,
         then the surfel map from the keyframe's own frame
         (System._on_keyframe, system.py:231-264)."""
-        t0 = time.perf_counter()
-        self.local_mapper.process_keyframe(kf_id)
-        t1 = time.perf_counter()
-        self.reloc_module.add_keyframe(kf_id)
-        t2 = time.perf_counter()
-        self.kf_perf["local_mapper"] += t1 - t0
-        self.kf_perf["reloc_add"] += t2 - t1
+        with self.trace.span("keyframe.local_mapper"):
+            self.local_mapper.process_keyframe(kf_id)
+        with self.trace.span("keyframe.reloc_add"):
+            self.reloc_module.add_keyframe(kf_id)
         if self.surfel_mapper is not None:
-            self.surfel_mapper.insert_keyframe(
-                kf_id, kf_frame.gray, kf_frame.depth, plane_membership=kf_frame.membership,
-                ref_kf=kf_frame.ref_kf)
-            self.kf_perf["surfel_insert"] += time.perf_counter() - t2
+            with self.trace.span("keyframe.surfel_insert"):
+                self.surfel_mapper.insert_keyframe(
+                    kf_id, kf_frame.gray, kf_frame.depth, plane_membership=kf_frame.membership,
+                    ref_kf=kf_frame.ref_kf)
 
     def shutdown(self) -> None:
         """Finish the frames in flight and the deferred back end, then the

@@ -439,7 +439,7 @@ def test_system_with_planes_on_cuda_matches_cpu(cuda):
         ts, gray, depth = seq.frame(i)
         a, b = gpu.track(gray, depth, ts), cpu.track(gray, depth, ts)
         assert a is not None and b is not None, f"frame {i}"
-    assert gpu.tracker.n_manhattan_frames == cpu.tracker.n_manhattan_frames >= 1
+    assert gpu.trace.counters["manhattan_frames"] == cpu.trace.counters["manhattan_frames"] >= 1
     assert gpu.map.manhattan_pairs == cpu.map.manhattan_pairs
     pos_gpu = np.array([r[1] for r in gpu.tracker.trajectory_rows()])
     pos_cpu = np.array([r[1] for r in cpu.tracker.trajectory_rows()])
@@ -537,7 +537,7 @@ def test_corridor_full_system_holds_the_reference_bars(cuda):
                            (np.array([r[0] for r in gt]), np.stack([r[1] for r in gt])))
     assert ate < 0.05
     tr = system.tracker
-    assert tr.n_manhattan_frames / max(tr.n_ok_frames, 1) >= 0.5
+    assert system.trace.counters["manhattan_frames"] / max(tr.n_ok_frames, 1) >= 0.5
 
 
 def test_system_with_back_end_on_cuda_matches_cpu(cuda):
@@ -607,6 +607,57 @@ def test_graphed_step_equals_eager_step(cuda):
     assert same(4)
     dt.reset_carry_(tr.carry, cfg, tr.T_cw, vo_points=True)
     assert same(5)
+
+
+def test_branch_times_sum_to_the_graph_and_leave_it_as_it_was(cuda):
+    """GraphedStep.branch_times on the card (the full body at chunk 1):
+    the six branches in order, their device ms within 3% of a replay of
+    the production graph and their operations adding up to its nodes;
+    the production graph replays after the timing capture as it did
+    before it, bit for bit from the same carry."""
+    from manhattanslam_tpu_torch.frontend.graphed_step import clone_tree, copy_tree_
+
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=3, cam=cfg.camera, view="near_corner")
+    system = System(cfg, fast=True, enable_surfels=False)
+    for i in range(3):
+        ts, gray, depth = seq.frame(i)
+        assert system.track(gray, depth, ts) is not None
+    step = system.tracker.step
+    assert step.graph is not None and step.nodes > 0
+    carry0 = clone_tree(step.carry)
+
+    def replay():
+        copy_tree_(step.carry, carry0)
+        step.graph.replay()
+        torch.cuda.synchronize()
+        return clone_tree(step._out), clone_tree(step.carry)
+
+    def graph_ms(n=20):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            step.graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    before = replay()
+    ms = graph_ms()
+    times = step.branch_times(system.tracker.view, reps=20)
+    ms = (ms + graph_ms()) / 2
+    assert list(times) == ["extract", "candidate_solves", "planes", "manhattan_solve", "lines",
+                           "final_solve"]
+    assert all(t["ms"] > 0 and t["ops"] > 0 for t in times.values()), times
+    assert abs(sum(t["ms"] for t in times.values()) - ms) <= 0.03 * ms, (times, ms)
+    assert sum(t["ops"] for t in times.values()) == step.nodes
+    after = replay()
+    for a, b in zip(before, after):
+        for k in a:
+            if isinstance(a[k], dict):
+                assert all(torch.equal(a[k][j], b[k][j]) for j in a[k]), k
+            else:
+                assert torch.equal(a[k], b[k]), k
 
 
 def test_chunked_pipelined_system_on_cuda_matches_cpu(cuda):

@@ -232,7 +232,7 @@ def test_slice_manhattan_decisions_like_reference(tracked):
     # the reference's own bar (tests/test_planes_e2e.py)
     assert sum(f[0][1] for _, _, f in rows[1:]) >= 3
     assert sum(f[1][1] for _, _, f in rows[1:]) >= 1
-    assert port.n_manhattan_frames == ref.n_manhattan_frames
+    assert port.trace.counters["manhattan_frames"] == ref.n_manhattan_frames
 
 
 def test_slice_map_planes_and_registries_like_reference(tracked):

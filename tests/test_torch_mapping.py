@@ -43,7 +43,7 @@ from manhattanslam_tpu.frontend.fast_tracking import FastTracker as JaxFastTrack
 from manhattanslam_tpu.frontend.tracking import FrameRecord as JaxFrameRecord
 from manhattanslam_tpu.mapping.local_mapping import LocalMapper as JaxLocalMapper
 from manhattanslam_tpu.slam_map import SlamMap as JaxSlamMap
-from manhattanslam_tpu_torch import convert
+from manhattanslam_tpu_torch import convert, tracing
 from manhattanslam_tpu_torch.frontend import device_tracker as pdt
 from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
 from manhattanslam_tpu_torch.mapping import triangulation as ptri
@@ -133,7 +133,8 @@ def test_walk_makes_keyframes_and_the_back_end_runs(mapped):
     system, snaps = mapped
     assert [kf for kf, _, _ in snaps] == list(range(len(snaps)))
     assert len(snaps) >= 3
-    assert system.local_mapper.perf["create_and_fuse"] > 0
+    stage = tracing.by_leaf(system.trace.snapshot(), ("create_and_fuse",))["create_and_fuse"]
+    assert stage[0] > 0 and stage[1] == system.local_mapper.counts["events"]
     ids = system.map.kf_mp_idx[: system.map.n_kf]
     assert system.map.mp_valid[ids[ids >= 0]].all()
     np.testing.assert_array_equal(system.map.covis, system.map.covis.T)

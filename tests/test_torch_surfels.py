@@ -45,7 +45,7 @@ from manhattanslam_tpu.ops import planes as jplanes
 from manhattanslam_tpu.ops import surfels as jsurf
 from manhattanslam_tpu.slam_map import SlamMap as JaxSlamMap
 from manhattanslam_tpu.system import System as JaxSystem
-from manhattanslam_tpu_torch import convert
+from manhattanslam_tpu_torch import convert, tracing
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.io import ply
 from manhattanslam_tpu_torch.mapping.surfel_mapping import SurfelMapper
@@ -375,7 +375,7 @@ def test_fast_surfels_tracker_bars(fast_surfels, corner_seq, tmp_path):
     p = tmp_path / "s.ply"
     system.save_surfels(str(p))
     assert len(ply.load_surfel_ply(str(p))["pos"]) > 100
-    assert system.kf_perf["surfel_insert"] > 0
+    assert tracing.by_leaf(system.trace.snapshot())["keyframe.surfel_insert"][0] > 0
 
 
 def test_fast_surfels_room_bar(fast_surfels, corner_seq, tmp_path):

@@ -185,7 +185,7 @@ def test_system_with_planes_tracks_the_corner_view(small_cfg):
         ts, gray, depth = seq.frame(i)
         assert system.track(gray, depth, ts) is not None
     assert int(system.map.pl_valid.sum()) >= 2 and len(system.map.manhattan_pairs) >= 1
-    assert system.tracker.n_manhattan_frames >= 1
+    assert system.trace.counters["manhattan_frames"] >= 1
 
 
 def test_system_needs_cuda_unless_cpu_is_asked(small_cfg):
