@@ -26,7 +26,11 @@ Phases, each printing one line with its elapsed seconds:
              frames in one launch, each also held equal to B single-image
              launches, with the bound recomputed for the B frames; and the
              batched pyramid and features against single-frame extraction
-             (reported).
+             (reported).  The pose solve (csrc/lm_solve.cu, which replaces
+             no TPU kernel) on the three solves of one full-body step of
+             640x480 near_corner frames, at B = 1 (its row) and B = 8:
+             within 1e-5 m and rad of the plain solve, two launches bit
+             for bit equal, timed the same way.
 Every System phase runs the mapping back end and the relocalizer on each
 keyframe (inside track, on the calling thread) and prints, besides its
 median ms per frame, the largest and the back end's host ms per keyframe
@@ -47,8 +51,9 @@ counts go up by the captured launches on every replay.
              section (summary pull, the deferred back end, and at a
              keyframe the payload pull, bookkeeping, the two view row
              diffs and the back end), graph replays and kernel launches
-             per frame (each kernel once per frame, counted through the
-             replays) and the step's device ms per frame (its graph
+             per frame (each kernel once per frame, the pose solve three
+             times, counted through the replays) and the step's device ms
+             per frame (its graph
              replayed back to back) with the busy share it gives.  The same
              frames then run at chunk=1 without the pipeline (the graphed
              frame step), printed beside it with the card's name and power
@@ -227,7 +232,8 @@ counts go up by the captured launches on every replay.
 
 Any failure raises and the script exits nonzero.  It writes only into a
 temporary directory and the kernel build directory, and starts no thread.
-The last two lines are the kernels JSON (one row per TPU kernel) and
+The last two lines are the kernels JSON (one row per TPU kernel and one for
+the pose solve) and
 {"ok": true, "device": ...}.
 """
 
@@ -258,6 +264,7 @@ from manhattanslam_tpu_torch.mapping.surfel_mapping import SurfelMapper, plane_m
 from manhattanslam_tpu_torch.ops import fast as fast_ops
 from manhattanslam_tpu_torch.ops import image as image_ops
 from manhattanslam_tpu_torch.ops import kernel_build, matching
+from manhattanslam_tpu_torch.ops import lm as lm_ops
 from manhattanslam_tpu_torch.ops import orb as orb_ops
 from manhattanslam_tpu_torch.ops import surfels as surf_ops
 from manhattanslam_tpu_torch.parallel import mesh, replay
@@ -322,12 +329,19 @@ IC_OPS_PER_PIXEL = 4
 BRIEF_OPS_PER_PAIR = 2 * 14 + 1
 # per blurred pixel: 7 multiplies and 6 adds in each of the two passes
 BLUR_OPS_PER_PIXEL = 2 * (7 + 6)
+# float ops of csrc/lm_solve.cu per row and pass, counted from its source
+# and rounded up: (a system pass at 6 dof, at 3 dof, a cost-only pass, a
+# chi2 pass) for a point row (3 residuals), a line endpoint and a plane
+# observation (with its normal's tangents at 6 dof)
+SOLVE_OPS = {"pt": (290, 135, 60, 45), "ln": (116, 70, 35, 30), "pl": (600, 200, 160, 150)}
+SOLVE_TOL = 1e-5  # m and rad: the kernel against the plain solve (tests/test_torch_cuda.py)
 
-# One row per TPU kernel (each function that reaches pl.pallas_call).  A
-# single kernel and its batched twin are served by one CUDA kernel, one
-# launch for all pyramid levels and streams; the single rows count
-# launches on the chunk phase's path, bench.py's phase 1 (and list every
-# other System phase beside it), the batched rows on the replay's.
+# One row per TPU kernel (each function that reaches pl.pallas_call), and
+# one for the pose solve, which replaces none.  A single kernel and its
+# batched twin are served by one CUDA kernel, one launch for all pyramid
+# levels and streams; the single rows count launches on the chunk phase's
+# path, bench.py's phase 1 (and list every other System phase beside it),
+# the batched rows on the replay's.
 _FAST = "manhattanslam_tpu_torch/csrc/fast.cu"
 _IC = "manhattanslam_tpu_torch/csrc/ic_angle.cu"
 _BRIEF = "manhattanslam_tpu_torch/csrc/brief.cu"
@@ -358,17 +372,29 @@ KERNELS = {
         replaces="manhattanslam_tpu/ops/orb_pallas.py:133 "
         "(_make_brief_kernel_batched, pallas_call :176)",
     ),
+    "lm_solve": dict(
+        source="manhattanslam_tpu_torch/csrc/lm_solve.cu", path="chunk",
+        wrapper=lm_ops.solve_pose_cuda,
+        replaces="none: XLA's fusion of solve_pose (manhattanslam_tpu/ops/lm.py); added for "
+        "the ~15.7k launches a frame of its plain version",
+    ),
 }
+# the extractor's kernels: once per frame (or batched step) on every path
 WRAPPERS = (fast_ops.fast_score_levels, orb_ops.ic_angle_levels, orb_ops.brief_levels)
+# the full body's pose solves a frame, one launch each: candidates, Manhattan, final
+SOLVES_PER_FRAME = 3
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS:
+    for fn in WRAPPERS + (lm_ops.solve_pose_cuda,):
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """Launches of every hand kernel; the pose solve's count per frame
+    depends on the tracker and its branches, so only the chunk phase
+    checks it."""
+    return {fn.__name__: fn.launches for fn in WRAPPERS + (lm_ops.solve_pose_cuda,)}
 
 
 def launches_per_frame() -> dict:
@@ -631,6 +657,70 @@ def _compare_extraction(cfg, dev, gray: torch.Tensor, depth: torch.Tensor) -> No
         f"others changed descriptor; features that differ anywhere: {sorted(differ)}")
 
 
+def solve_work(a: dict) -> tuple[float, float]:
+    """(bytes, float ops) of one csrc/lm_solve.cu launch on solve_pose's
+    arguments `a`: each input and output byte once; every pass over the
+    rows that the schedule runs (plane observations: those the masks
+    keep)."""
+    tensors, dims = lm_ops.kernel_inputs(a["prob"], a["T0"], a["K"], a["use_planes"],
+                                         a["use_lines"])
+    b, n_pt, n_ln = dims[0], dims[1], dims[2]
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    n_bytes += b * (64 + 8 + 4 + n_pt + n_ln + sum(dims[3:]))  # T, n_inliers, chi2, masks
+    rows = {"pt": b * n_pt, "ln": b * n_ln}
+    if a["use_planes"]:
+        p = a["prob"]
+        rows["pl"] = int(p.pl_mask.sum() + p.par_mask.sum() + p.ver_mask.sum())
+    r, i = a["n_rounds"], a["n_iters"]
+    n_ops = 0.0
+    for fam, n in rows.items():
+        sys6, sys3, cost, chi = SOLVE_OPS[fam]
+        per_pass = sys3 if a["translation_only"] else sys6
+        n_ops += n * (r * i * per_pass + (0 if a["gauss_newton"] else r) * cost + r * chi)
+    return n_bytes, n_ops
+
+
+def _measure_solve(cfg, dev, st: dict) -> None:
+    """The pose solve's kernel on the three solves (candidates, Manhattan,
+    final) of one full-body step of 640x480 near_corner frames at B = 1,
+    the chunk path's launches: each within SOLVE_TOL of the plain version,
+    two launches bit for bit equal; `ms`, `device_ms`, the plain version's
+    ms and the bound terms summed over the three into st.  Logs the same
+    at B = BATCH, per step."""
+    seq = SyntheticSequence(n_frames=BATCH + 2, cam=cfg.camera, view="near_corner")
+    frames = [seq.frame(i) for i in range(BATCH + 2)]
+    view, _ = replay.shared_view(cfg, frames[0], dev)
+    native = [dt.to_native(g, d) for _, g, d in frames]
+    for b in (1, BATCH):
+        calls = replay.step_solves(cfg, seq, native, view, list(range(1, b + 1)), dev)
+        sums = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0)
+        by_solve = []
+        for a in calls:
+            out, again = lm_ops.solve_pose(**a), lm_ops.solve_pose(**a)
+            ref = lm_ops.solve_pose_plain(**a)
+            if not all(torch.equal(out[k], again[k]) for k in out):
+                raise RuntimeError(f"lm_solve (B = {b}): two launches differ")
+            gap = max(max(_pose_diff(x, y)) for x, y in zip(ref["T"].cpu().numpy(),
+                                                              out["T"].cpu().numpy()))
+            if not gap < SOLVE_TOL:
+                raise RuntimeError(f"lm_solve (B = {b}): {gap} off the plain solve")
+            one = dict(max_abs_err=gap, ms=median_ms(lambda: lm_ops.solve_pose(**a)),
+                       device_ms=graph_ms(lambda _s: lm_ops.solve_pose(**a)),
+                       plain_ms=median_ms(lambda: lm_ops.solve_pose_plain(**a), reps=3, trials=3))
+            one["bytes"], one["ops"] = solve_work(a)
+            by_solve.append(round(one["device_ms"], 4))
+            for k, v in one.items():
+                sums[k] = max(sums[k], v) if k == "max_abs_err" else sums[k] + v
+        log(f"kernels lm_solve at B = {b}: device ms by solve (candidates, Manhattan, final) "
+            f"{by_solve}, per {'frame' if b == 1 else 'step'} {sums['device_ms']:.4f} "
+            f"(from Python {sums['ms']:.4f}, plain {sums['plain_ms']:.4f}); {sums['bytes']:.0f} "
+            f"bytes, {sums['ops']:.0f} float ops; largest gap to the plain solve "
+            f"{sums['max_abs_err']:.3g}")
+        if b == 1:
+            for k, v in sums.items():
+                st[k] = v
+
+
 def phase_kernels(cfg, dev, frames) -> dict:
     """Each kernel against its plain version at the main path's shapes:
     frame 0 alone (the track phase's launches) and BATCH frames in one
@@ -645,7 +735,8 @@ def phase_kernels(cfg, dev, frames) -> dict:
     _measure_levels(cfg, dev, gray[:1].contiguous(), stats, ("fast_score", "ic_angle", "brief"))
     _measure_levels(cfg, dev, gray, stats,
                     ("fast_score_batched", "ic_angle_batched", "brief_batched"))
-    per_frame = launches_per_frame()
+    _measure_solve(cfg, dev, stats["lm_solve"])
+    per_frame = {**launches_per_frame(), lm_ops.solve_pose_cuda.__name__: SOLVES_PER_FRAME}
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(st.pop("bytes"), st.pop("ops"))
         log(f"kernels {name}: max_abs_err {st['max_abs_err']:.3g}, "
@@ -662,12 +753,13 @@ def phase_kernels(cfg, dev, frames) -> dict:
 
 
 def _check_launches(name: str, launches: dict, n: int) -> None:
-    """Each kernel launched once per frame of the n frames (so at least
-    once on the path)."""
-    for k, c in launches.items():
-        if c != n * launches_per_frame()[k]:
+    """Each extractor kernel launched once per frame of the n frames (so at
+    least once on the path)."""
+    for k, per in launches_per_frame().items():
+        c = launches[k]
+        if c != n * per:
             raise RuntimeError(f"{name}: kernel {k} launched {c} times in {n} frames, not "
-                               f"{launches_per_frame()[k]} per frame")
+                               f"{per} per frame")
 
 
 def _run_system(cfg, seq, frames, tmp: str, enable_planes: bool, name: str,
@@ -909,8 +1001,9 @@ def phase_replay(cfg, dev, track_ms: float) -> dict:
     for i, out in enumerate(outs):
         if not out["tracked_ok"].all():
             raise RuntimeError(f"replay step {i}: streams {np.nonzero(~out['tracked_ok'])[0]} lost")
-        for name, n in step_launches[i].items():
-            if n != per_step[name]:
+        for name, want in per_step.items():
+            n = step_launches[i][name]
+            if n != want:
                 raise RuntimeError(
                     f"replay step {i}: {name} launched {n} times, not {per_step[name]}")
     # each stream against the single-stream step on the same frame and carry
@@ -1148,8 +1241,11 @@ def _chunk_run(cfg, seq, frames, tmp: str, chunk: int, pipeline: bool, name: str
             tr.force_keyframe = True
         system.track(frames[i][1], frames[i][2], frames[i][0])
     tr.flush()
+    solves0 = lm_ops.solve_pose_cuda.launches
     system.warmup()
     torch.cuda.synchronize()
+    # the warm-up's relocalization of the last frame solves off the step
+    warm_solves = lm_ops.solve_pose_cuda.launches - solves0
     n0 = sum(not r.lost for r in tr.records)
     kf0 = tr.counts["keyframes"]
     since = system.trace.snapshot()
@@ -1185,8 +1281,8 @@ def _chunk_run(cfg, seq, frames, tmp: str, chunk: int, pipeline: bool, name: str
     med = statistics.median(windows)
     return {"system": system, "windows": windows, "ms": med, "n_ok": n_ok, "n_timed": n_timed,
             "ate": ate, "keyframes": tr.counts["keyframes"], "kf_timed": tr.counts["keyframes"] - kf0,
-            "perf": perf, "launches": launches, "replays": replays, "device_ms": device_ms,
-            "busy": device_ms / med, "seconds": time.perf_counter() - t0}
+            "perf": perf, "launches": launches, "warm_solves": warm_solves, "replays": replays,
+            "device_ms": device_ms, "busy": device_ms / med, "seconds": time.perf_counter() - t0}
 
 
 def _graph_equals_eager(cfg, frames) -> str:
@@ -1271,6 +1367,12 @@ def phase_chunk(tmp: str, smi: str) -> tuple[dict, dict, dict]:
         if not run["ate"] < ATE_LIMIT:
             raise RuntimeError(f"{name}: ATE {run['ate']} m is not below {ATE_LIMIT} m")
         _check_launches(name, run["launches"], n)
+        solves = run["launches"]["solve_pose_cuda"] - run["warm_solves"]
+        log(f"{name}: the pose solve launched {solves} times by the step in {n} frames, "
+            f"{run['warm_solves']} by the warm-up's relocalization")
+        if solves != SOLVES_PER_FRAME * n:
+            raise RuntimeError(f"{name}: the step launched the pose solve {solves} times in {n} "
+                               f"frames, not {SOLVES_PER_FRAME} per frame")
         run["system"] = None
     log(f"chunk: {runs['chunk']['ms']:.2f} ms per frame at chunk {BENCH_CHUNK} with the "
         f"pipeline, {runs['chunk1']['ms']:.2f} ms per frame at chunk 1 (graphed, no pipeline), "
@@ -2005,7 +2107,7 @@ def _persist_mesh(cfg, seq, dev) -> dict:
     if not (worst_t < POSE_TOL_M and worst_r < POSE_TOL_RAD):
         raise RuntimeError(f"persist mesh: B = {MESH_B} off B = 1 by {worst_t} m / {worst_r} rad")
     for i, n in enumerate(per_step):
-        if n != launches_per_frame():
+        if {k: n[k] for k in launches_per_frame()} != launches_per_frame():
             raise RuntimeError(f"persist mesh: step {i} launched {n}, not once per kernel")
     rng = np.random.default_rng(5)
     base = rng.integers(-2**31, 2**31, (16, 8), dtype=np.int64).astype(np.int32)

@@ -46,10 +46,12 @@ import torch
 
 from manhattanslam_tpu_torch import tracing
 from manhattanslam_tpu_torch.ops import fast as fast_ops
+from manhattanslam_tpu_torch.ops import lm
 from manhattanslam_tpu_torch.ops import orb as orb_ops
 
 # the wrappers of the hand kernels, whose counts a replay advances
-COUNTED = (fast_ops.fast_score_levels, orb_ops.ic_angle_levels, orb_ops.brief_levels)
+COUNTED = (fast_ops.fast_score_levels, orb_ops.ic_angle_levels, orb_ops.brief_levels,
+           lm.solve_pose_cuda)
 
 
 def copy_tree_(dst: dict, src: dict) -> None:

@@ -37,9 +37,9 @@ _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _PI = ctypes.POINTER(ctypes.c_int)  # host array of ints
 _PF = ctypes.POINTER(ctypes.c_float)  # host array of floats
 # C signature of each kernel source's entry point: (symbol, argtypes).
-# Each takes a level table (host arrays, one entry per pyramid level, at
-# most 8 levels) and serves every level and stream in one launch.  The
-# stream handle comes last.
+# The ORB kernels take a level table (host arrays, one entry per pyramid
+# level, at most 8 levels) and serve every level and stream in one
+# launch.  The stream handle comes last.
 SIGNATURES = {
     # img[], out[], h[], w[], tiles_x[], tiles_img[], tile_start[], levels, stream
     "fast": ("mslam_fast_score_levels", (_PP, _PP, _PI, _PI, _PI, _PI, _PI, _I, _P)),
@@ -49,6 +49,10 @@ SIGNATURES = {
     # threads per keypoint, xy, cos, sin, pattern, desc, stream
     "brief": ("mslam_brief_levels",
               (_PP, _PI, _PI, _PI, _PI, _PF, _I, _I, _I, _P, _P, _P, _P, _P, _P)),
+    # the pose solve (not a level table: one problem per block): inputs[],
+    # outputs[], dims[], consts[], dof, gauss_newton, use_lines,
+    # use_planes, n_rounds, n_iters, stream
+    "lm_solve": ("mslam_lm_solve", (_PP, _PP, _PI, _PF, _I, _I, _I, _I, _I, _I, _P)),
 }
 _PD = ctypes.POINTER(ctypes.c_double)
 # C signature of each host C++ source's entry point: (symbol, argtypes).

@@ -25,18 +25,27 @@ normalization, the azimuth/elevation frame of the moved plane and the
 residual angles; their IRLS weights are applied as row scales afterwards.
 Every function takes a batch dimension B written out: the frame step
 solves its candidate problems as one batch.
+
+``solve_pose`` is the wrapper of the hand-written kernel ``csrc/lm_solve.cu``
+(see the bound and design notes there): for CPU tensors it runs the plain
+PyTorch version ``solve_pose_plain``; for CUDA tensors it makes ONE launch
+of the kernel (``solve_pose_cuda``, counted) for the whole round schedule
+of every problem of the batch, or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+import numbers
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from manhattanslam_tpu_torch.geometry import se3
+from manhattanslam_tpu_torch.ops import kernel_build
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -641,7 +650,135 @@ def solve_pose(
     solves); use_lines needs the problem's line rows.
 
     Returns T (B,4,4), inlier_pt / inlier_ln / inlier_pl / inlier_par /
-    inlier_ver masks, n_inliers (B,) over every family and chi2 (B,)."""
+    inlier_ver masks, n_inliers (B,) over every family and chi2 (B,).
+    The plain version on the CPU; on the card one launch of the kernel
+    (``solve_pose_cuda``)."""
+    solve = solve_pose_plain if T0.device.type == "cpu" else solve_pose_cuda
+    return solve(prob, T0, K, bf, params, translation_only, n_rounds, n_iters, gauss_newton,
+                 use_planes, use_lines)
+
+
+# The kernel's inputs by field: (family, trailing shape, dtype); the
+# fields in PoseProblem's order are the kernel's, then T0 and K.
+_KERNEL_SPEC = {
+    **{f"{fam}_{k}": (fam, tail, dtype) for fam in ("pl", "par", "ver")
+       for k, tail, dtype in (("w", (4,), torch.float32), ("obs", (4,), torch.float32),
+                              ("mask", (), torch.bool))},
+    "pt_xw": ("pt", (3,), torch.float32), "pt_obs": ("pt", (3,), torch.float32),
+    "pt_info": ("pt", (), torch.float32), "pt_stereo": ("pt", (), torch.bool),
+    "pt_mask": ("pt", (), torch.bool),
+    "ln_xw": ("ln", (3,), torch.float32), "ln_eq": ("ln", (3,), torch.float32),
+    "ln_info": ("ln", (), torch.float32), "ln_mask": ("ln", (), torch.bool),
+}
+
+
+def kernel_inputs(prob: PoseProblem, T0: torch.Tensor, K: torch.Tensor, use_planes: bool,
+                  use_lines: bool) -> tuple[list, list[int]]:
+    """The tensors of one csrc/lm_solve.cu launch, in its order: the
+    problem's fields as they are (no copy; None for a family the solve
+    leaves out), then T0 and K; and the row counts [B, points, line
+    endpoints, pl, par, ver].  Raises on a device, dtype, shape or layout
+    the kernel does not take: every tensor on T0's device, float32 or
+    bool, contiguous, each family's rows (B, n, ...) with one n."""
+    if T0.dtype != torch.float32 or T0.dim() != 3 or T0.shape[1:] != (4, 4):
+        raise ValueError("solve_pose: T0 must be a (B, 4, 4) float32 tensor")
+    dev, B = T0.device, T0.shape[0]
+    used = {"pt"} | ({"ln"} if use_lines else set()) | ({"pl", "par", "ver"} if use_planes else set())
+    tensors, rows = [], {}
+    for name, x in zip(PoseProblem._fields, prob):
+        fam, tail, dtype = _KERNEL_SPEC[name]
+        if fam not in used:
+            tensors.append(None)
+            continue
+        if x is None:
+            raise ValueError(f"solve_pose: {name} is None but its family is in the solve")
+        n = rows.setdefault(fam, x.shape[1] if x.dim() > 1 else -1)
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != (B, n) + tail:
+            raise ValueError(f"solve_pose: {name} must be a {(B, n) + tail} {dtype} tensor on "
+                             f"{dev}, not {tuple(x.shape)} {x.dtype} on {x.device}")
+        tensors.append(x)
+    if K.device != dev or K.dtype != torch.float32 or K.shape != (3, 3):
+        raise ValueError(f"solve_pose: K must be a (3, 3) float32 tensor on {dev}")
+    tensors += [T0, K]
+    if not all(t is None or t.is_contiguous() for t in tensors):
+        raise ValueError("solve_pose: the kernel takes contiguous tensors")
+    return tensors, [B, rows["pt"], rows.get("ln", 0), rows.get("pl", 0), rows.get("par", 0),
+                     rows.get("ver", 0)]
+
+
+def solve_pose_cuda(
+    prob: PoseProblem,
+    T0: torch.Tensor,
+    K: torch.Tensor,
+    bf,
+    params: SolveParams | None = None,
+    translation_only: bool = False,
+    n_rounds: int = 4,
+    n_iters: int = 10,
+    gauss_newton: bool = False,
+    use_planes: bool = False,
+    use_lines: bool = False,
+) -> dict:
+    """``solve_pose`` as ONE launch of csrc/lm_solve.cu on T0's CUDA device
+    (one block per problem), on the current stream with no host sync:
+    outputs as the plain version's, allocated here.  bf is a number (a
+    device tensor would need a sync)."""
+    if T0.device.type != "cuda":
+        raise ValueError(f"solve_pose_cuda: unsupported device {T0.device}")
+    if isinstance(bf, torch.Tensor) or not isinstance(bf, numbers.Real):
+        raise ValueError("solve_pose_cuda: bf must be a number")
+    if min(n_rounds, n_iters) < 0:
+        raise ValueError("solve_pose_cuda: negative n_rounds or n_iters")
+    params = default_params() if params is None else params
+    tensors, dims = kernel_inputs(prob, T0, K, use_planes, use_lines)
+    B, n_pt, dev = dims[0], dims[1], T0.device
+    # output mask widths: a family left out returns zeros of the plain
+    # version's shapes (pl_mask's for all three plane families)
+    P = prob.pl_mask.shape[-1]
+    widths = [0 if prob.ln_mask is None else prob.ln_mask.shape[-1], P,
+              dims[4] if use_planes else P, dims[5] if use_planes else P]
+
+    def mask(n):
+        return torch.empty((B, n), dtype=torch.bool, device=dev)
+
+    out = {
+        "T": torch.empty((B, 4, 4), dtype=torch.float32, device=dev),
+        "inlier_pt": mask(n_pt),
+        **{"inlier_" + k: mask(n) for k, n in zip(("ln", "pl", "par", "ver"), widths)},
+        "n_inliers": torch.empty((B,), dtype=torch.int64, device=dev),
+        "chi2": torch.empty((B,), dtype=torch.float32, device=dev),
+    }
+    err = kernel_build.kernel("lm_solve")(
+        kernel_build.c_array(ctypes.c_void_p, [None if t is None else t.data_ptr() for t in tensors]),
+        kernel_build.c_array(ctypes.c_void_p, [t.data_ptr() for t in out.values()]),
+        kernel_build.c_array(ctypes.c_int, dims + widths),
+        kernel_build.c_array(ctypes.c_float, [float(bf), *params]),
+        3 if translation_only else 6, int(gauss_newton), int(use_lines), int(use_planes),
+        int(n_rounds), int(n_iters), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernel_build.check_launch("lm_solve", err)
+    solve_pose_cuda.launches += 1
+    return out
+
+
+solve_pose_cuda.launches = 0
+
+
+def solve_pose_plain(
+    prob: PoseProblem,
+    T0: torch.Tensor,
+    K: torch.Tensor,
+    bf,
+    params: SolveParams | None = None,
+    translation_only: bool = False,
+    n_rounds: int = 4,
+    n_iters: int = 10,
+    gauss_newton: bool = False,
+    use_planes: bool = False,
+    use_lines: bool = False,
+) -> dict:
+    """``solve_pose`` in plain PyTorch (the CPU's path; on the card the
+    kernel's yardstick)."""
     params = default_params() if params is None else params
     s = _Solver(prob, K, bf, params, translation_only, use_planes, use_lines)
     masks0 = {"pt": prob.pt_mask}

@@ -11,9 +11,15 @@ lifted lines as map lines.  Stream s replays the sequence from frame
 ``first[s]`` and starts at that frame's ground-truth pose (a stream that
 starts at the identity would take its whole offset from frame 0 as its
 first velocity).
+
+``step_solves`` records the pose solves of one such step, as the solver's
+arguments, for holding the solve kernel against its plain version.
 """
 
 from __future__ import annotations
+
+import inspect
+from unittest import mock
 
 import numpy as np
 import torch
@@ -21,6 +27,7 @@ import torch
 from manhattanslam_tpu_torch.config import SlamConfig
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend.fast_tracking import FastTracker
+from manhattanslam_tpu_torch.ops import lm
 from manhattanslam_tpu_torch.parallel import mesh
 from manhattanslam_tpu_torch.slam_map import SlamMap
 
@@ -55,3 +62,25 @@ def step_frames(native: list, first: list[int], i: int, device) -> tuple[torch.T
     g8 = torch.from_numpy(np.stack([native[f + i][0] for f in first])).to(device)
     d16 = torch.from_numpy(np.stack([native[f + i][1].astype(np.int32) for f in first]))
     return g8, d16.to(device)
+
+
+def step_solves(cfg: SlamConfig, seq, native: list, view: dict, first: list[int],
+                device) -> list[dict]:
+    """The ``lm.solve_pose`` calls of step 0 of the streams `first` through
+    the full body, run eagerly: the candidate, the Manhattan and the final
+    solve, each as ``lm.solve_pose_plain``'s arguments by name (the plain
+    version solves them meanwhile)."""
+    sig = inspect.signature(lm.solve_pose_plain)
+    calls = []
+
+    def record(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        calls.append(dict(bound.arguments))
+        return lm.solve_pose_plain(*args, **kwargs)
+
+    body = dt.build_batched_body(cfg, device, enable_planes=True, enable_lines=True)
+    g8, d16 = step_frames(native, first, 0, device)
+    with mock.patch.object(lm, "solve_pose", record):
+        body(*dt.frame_to_float(g8, d16), start_carry(cfg, seq, first, device), view)
+    return calls

@@ -21,7 +21,7 @@ from manhattanslam_tpu_torch.datasets.synthetic import SyntheticSequence
 from manhattanslam_tpu_torch.frontend import device_tracker as dt
 from manhattanslam_tpu_torch.frontend import frame
 from manhattanslam_tpu_torch.io import trajectory as traj_io
-from manhattanslam_tpu_torch.ops import fast, image, kernel_build, lines, orb, planes, surfels
+from manhattanslam_tpu_torch.ops import fast, image, kernel_build, lines, lm, orb, planes, surfels
 from manhattanslam_tpu_torch.parallel import mesh, replay
 from manhattanslam_tpu_torch.system import System
 
@@ -907,3 +907,182 @@ def test_load_map_then_graphed_tracking_on_cuda(cuda, tmp_path):
         ts, gray, depth = seq.frame(i)
         assert second.track(gray, depth, 100.0 + i) is not None, i
     assert tr.step.graph is not None
+
+
+# ---------------------------------------------------------------- the pose solve
+SOLVE_CASES = ("candidate", "manhattan", "final", "reloc")
+
+
+@pytest.fixture(scope="module")
+def near_corner_solves():
+    """The three solve_pose calls of one eager full-body step on 640x480
+    near_corner frames (replay.step_solves) at B = 1 and B = 8: {B: {case:
+    solve_pose_plain's arguments}}; "reloc" is the final problem with the
+    relocalizer's flags (LM, 4 x 10, points only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    cfg = load_config(str(Path(__file__).resolve().parent.parent / "configs" / "TUM1.yaml"))
+    seq = SyntheticSequence(n_frames=12, cam=cfg.camera, view="near_corner")
+    frames = [seq.frame(i) for i in range(10)]
+    view, _ = replay.shared_view(cfg, frames[0], dev)
+    native = [dt.to_native(g, d) for _, g, d in frames]
+    out = {}
+    for b in (1, 8):
+        calls = replay.step_solves(cfg, seq, native, view, list(range(1, b + 1)), dev)
+        assert len(calls) == 3
+        reloc = dict(calls[2], translation_only=False, n_rounds=4, n_iters=10,
+                     gauss_newton=False, use_planes=False, use_lines=False)
+        out[b] = dict(zip(SOLVE_CASES, calls + [reloc]))
+    return out
+
+
+def _pose_gap(Ta, Tb):
+    """(translation m, rotation rad) of Ta^-1 Tb, per problem, in float64."""
+    d = torch.linalg.inv(Ta.double()) @ Tb.double()
+    w = torch.stack([d[:, 2, 1] - d[:, 1, 2], d[:, 0, 2] - d[:, 2, 0], d[:, 1, 0] - d[:, 0, 1]], -1)
+    tr = d[:, 0, 0] + d[:, 1, 1] + d[:, 2, 2]
+    return torch.linalg.norm(d[:, :3, 3], dim=-1), torch.atan2(torch.linalg.norm(w, dim=-1) / 2,
+                                                                (tr - 1) / 2)
+
+
+def _near_gates(a: dict, T: torch.Tensor) -> dict:
+    """Per family, the rows whose chi2 at pose T lies within 1e-4 relative
+    of their gate."""
+    s = lm._Solver(a["prob"], a["K"], a["bf"], a["params"], a["translation_only"],
+                   a["use_planes"], a["use_lines"])
+    p = a["params"]
+    gates = {"pt": lm.chi2_threshold(a["prob"]), "ln": 2.0 * lm.CHI2_MONO, "pl": p.plane_chi,
+             "par": p.vp_chi, "ver": p.vp_chi}
+    return {k: (c - gates[k]).abs() <= 1e-4 * torch.as_tensor(gates[k])
+            for k, c in s.chi(T).items()}
+
+
+def _assert_solve_matches_plain(a: dict, out: dict, ref: dict) -> None:
+    # T within 1e-5 m and 1e-5 rad: the kernel sums H, g and the cost in
+    # another order than cuBLAS and PyTorch's reductions, and contracts
+    # products into FMAs, so the two iterate on float32 roundings apart
+    # (~1e-7 relative); the damped steps contract that, so the poses stay
+    # within a few float32 ulps of a metre-scale pose
+    dt_m, dr = _pose_gap(ref["T"], out["T"])
+    assert float(dt_m.max()) < 1e-5 and float(dr.max()) < 1e-5, (dt_m, dr)
+    # the masks equal, but where a row's chi2 sits within 1e-4 relative of
+    # its gate: which side of the gate it falls is float32 rounding there
+    near = _near_gates(a, ref["T"])
+    n_near = torch.zeros_like(ref["n_inliers"])
+    for k in ("pt", "ln", "pl", "par", "ver"):
+        differ = out["inlier_" + k] != ref["inlier_" + k]
+        if k in near:
+            assert not bool((differ & ~near[k]).any()), k
+            n_near = n_near + (differ & near[k]).sum(-1)
+        else:  # a family the solve leaves out: no inliers
+            assert not bool(out["inlier_" + k].any()) and out["inlier_" + k].shape == ref[
+                "inlier_" + k].shape, k
+    assert bool(((out["n_inliers"] - ref["n_inliers"]).abs() <= n_near).all())
+    # chi2 sums the same inliers' chi2 at poses within float32 rounding:
+    # 1e-4 relative (where no mask differs)
+    same = n_near == 0
+    assert torch.allclose(out["chi2"][same], ref["chi2"][same], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("case", SOLVE_CASES)
+def test_lm_solve_kernel_matches_plain(near_corner_solves, case, b):
+    """csrc/lm_solve.cu against the plain solve on the card, for each
+    caller's flags (candidate: GN, 6 dof, points, 3B problems; Manhattan:
+    GN, translation only, points and planes, 2B; final: LM, 6 dof, every
+    family; reloc: LM 4 x 10, points only), on problems of 640x480
+    near_corner frames: one launch a call, two launches bit for bit equal
+    (a fixed reduction order, no atomics), and the plain version's answer
+    within the tolerances stated in _assert_solve_matches_plain."""
+    a = near_corner_solves[b][case]
+    before = lm.solve_pose_cuda.launches
+    out, again = lm.solve_pose(**a), lm.solve_pose(**a)
+    torch.cuda.synchronize()
+    assert lm.solve_pose_cuda.launches == before + 2
+    assert list(out) == list(again)
+    for k in out:
+        assert torch.equal(out[k], again[k]), k
+    ref = lm.solve_pose_plain(**a)
+    assert list(out) == list(ref)
+    assert all(out[k].dtype == ref[k].dtype and out[k].shape == ref[k].shape for k in out)
+    _assert_solve_matches_plain(a, out, ref)
+
+
+@pytest.mark.parametrize("case", ["final", "candidate"])
+def test_lm_solve_kernel_degenerate_problems(near_corner_solves, case):
+    """Every row masked (H = 0: the pose stays T0, no inliers, chi2 0) gives
+    what the plain version gives, bit for bit.  A single point row (H of
+    rank 3 at most, so singular; the damping makes it solvable) has no
+    unique pose: a step along H's null space is the rounding of g over
+    the damping (LM's lambda halves to 1e-5 in 5 accepted iterations), so
+    the two poses may part by centimetres there; what both have to give is
+    the same inlier and the same cost: chi2 within 1e-3 of the row's gate
+    of each other, the pose finite and a rotation."""
+    a = near_corner_solves[1][case]
+    prob = a["prob"]
+    off = {k: torch.zeros_like(getattr(prob, k)) for k in lm.PoseProblem._fields
+           if k.endswith("mask") and getattr(prob, k) is not None}
+    none = dict(a, prob=prob._replace(**off))
+    out, ref = lm.solve_pose(**none), lm.solve_pose_plain(**none)
+    for k in out:
+        assert torch.equal(out[k], ref[k]), k
+    assert torch.equal(out["T"], a["T0"])
+    one = off["pt_mask"].clone()
+    one[0, int(torch.nonzero(prob.pt_mask[0])[0])] = True
+    single = dict(none, prob=none["prob"]._replace(pt_mask=one))
+    out, ref = lm.solve_pose(**single), lm.solve_pose_plain(**single)
+    for k in ("inlier_pt", "inlier_ln", "inlier_pl", "inlier_par", "inlier_ver", "n_inliers"):
+        assert torch.equal(out[k], ref[k]), k
+    assert bool(out["inlier_pt"][0].any())
+    c_out, c_ref = float(out["chi2"][0]), float(ref["chi2"][0])
+    assert abs(c_out - c_ref) < 1e-3 * lm.CHI2_MONO, (c_out, c_ref)
+    R = out["T"][0, :3, :3].double()
+    assert bool(torch.isfinite(out["T"]).all())
+    assert torch.allclose(R @ R.T, torch.eye(3, dtype=R.dtype, device=R.device), atol=1e-5)
+
+
+def test_lm_solve_is_one_node_a_solve_and_three_launches_a_frame(cuda, near_corner_solves):
+    """Captured in a CUDA graph, each of the three solves of a frame adds
+    one node (the kernel: no torch op of the solver); one eager frame of
+    the full body launches the kernel exactly three times."""
+    from manhattanslam_tpu_torch import tracing
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    added = []
+    with torch.cuda.graph(graph, stream=side):
+        for case in ("candidate", "manhattan", "final"):
+            n0 = tracing.capture_nodes()
+            lm.solve_pose(**near_corner_solves[1][case])
+            added.append(tracing.capture_nodes() - n0)
+    assert added == [1, 1, 1]
+    cfg = _small_cfg()
+    seq = SyntheticSequence(n_frames=4, cam=cfg.camera, view="near_corner")
+    frames = [seq.frame(i) for i in range(3)]
+    view, _ = replay.shared_view(cfg, frames[0], cuda)
+    native = [dt.to_native(g, d) for _, g, d in frames]
+    body = dt.build_batched_body(cfg, cuda, enable_planes=True, enable_lines=True)
+    g8, d16 = replay.step_frames(native, [1], 0, cuda)
+    before = lm.solve_pose_cuda.launches
+    body(*dt.frame_to_float(g8, d16), replay.start_carry(cfg, seq, [1], cuda), view)
+    assert lm.solve_pose_cuda.launches == before + 3
+
+
+def test_lm_solve_wrapper_checks_inputs(cuda):
+    """The wrapper raises on what the kernel does not take, and the plain
+    path is not reachable with CUDA tensors."""
+    K = torch.eye(3, device=cuda)
+    T0 = torch.eye(4, device=cuda)[None]
+    prob = lm.empty_problem(npt=4, nl=2, lead=(1,), device=cuda)
+    with pytest.raises(ValueError):
+        lm.solve_pose(prob, T0.double(), K, 30.0)
+    with pytest.raises(ValueError):
+        lm.solve_pose(prob._replace(pt_xw=prob.pt_xw.double()), T0, K, 30.0)
+    with pytest.raises(ValueError):
+        lm.solve_pose(prob, T0, K, torch.tensor(30.0, device=cuda))
+    with pytest.raises(ValueError):
+        lm.solve_pose(prob._replace(pt_info=prob.pt_info.cpu()), T0, K, 30.0)
+    with pytest.raises(ValueError):
+        lm.solve_pose_cuda(lm.empty_problem(npt=4, lead=(1,)), T0.cpu(), K.cpu(), 30.0)
